@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (longqc_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Phases (any failure raises, so the script exits nonzero and never
+prints the final result line):
+  1. environment: card name and power limit, torch / CUDA / nvcc /
+     triton; no CUDA device -> fail
+  2. build the four kernels (B1 sketch, B2 chain fill, B3 peak,
+     B4 min-rank) from longqc_tpu_torch/csrc
+  3. each kernel against its plain PyTorch version on the card, at
+     production shapes, with exact equality (tolerance 0: all outputs
+     are integers); both times printed
+  4. small end to end: the engine's rows on the card equal the port's
+     host spec (overlap_host.overlap_run)
+  5. realistic `mmcov` run through longqc_tpu_torch.cli.main at the
+     ont-ligation sample configuration (k=12 w=5 -p 160 -q 160 -l 0):
+     10 Mbp genome, 20,000 target reads of 1-8 kbp (~9x), 5,000
+     queries; kernel launch counts, host-fixed rows (<= 5%) and 32
+     random queries' rows against the host spec
+The line before the last is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}.
+
+Imports nothing of JAX or of the JAX package.
+"""
+
+import io
+import json
+import os
+import random
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from contextlib import redirect_stdout
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+N_TARGETS = 20000       # target reads of the realistic run
+N_QUERIES = 5000        # the sampleqc default -n
+
+SOURCES = {
+    "sketch": ("longqc_tpu_torch/csrc/sketch.cu",
+               "longqc_tpu/ops/sketch_pallas.py:312"),
+    "chain": ("longqc_tpu_torch/csrc/chain.cu",
+              "longqc_tpu/ops/chain_pallas.py:293"),
+    "peak": ("longqc_tpu_torch/csrc/ringprop.cu",
+             "longqc_tpu/ops/ringprop.py:116"),
+    "minrank": ("longqc_tpu_torch/csrc/ringprop.cu",
+                "longqc_tpu/ops/ringprop.py:137"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds per call over `reps` calls (CUDA events,
+    after one warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def max_abs(a, b):
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def require_equal(name, a, b):
+    err = max_abs(a, b)
+    if err != 0 or a.shape != b.shape:
+        raise AssertionError("%s: kernel differs from its plain version "
+                             "(max |diff| %d)" % (name, err))
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+
+
+def synth_part(rng, n, lo, hi):
+    """Reads with N runs and (AT)n stretches (symmetric k-mers)."""
+    reads = []
+    for i in range(n):
+        s = "".join(rng.choice("ACGT") for _ in range(rng.randint(lo, hi)))
+        if i % 7 == 3:
+            p = rng.randint(0, len(s) - 40)
+            s = s[:p] + "N" * rng.randint(1, 30) + s[p + 30:]
+        if i % 11 == 5:
+            p = rng.randint(0, len(s) // 2)
+            s = s[:p] + "AT" * rng.randint(20, 400) + s[p:]
+        reads.append(["s%05d" % i, s, ""])
+    return reads
+
+
+def check_sketch(dev, k, w):
+    import torch
+    from longqc_tpu_torch.engine import device_index as di
+    from longqc_tpu_torch.ops import sketch_cuda as skc
+
+    rng = random.Random(5)
+    out = {}
+    for R, W, lo, hi in ((256, 8192, 200, 3000), (32, 65536, 4000, 20000)):
+        b = di._TileBuilder(R, W, max(w - 1, 1))
+        gid = 0
+        while len(b.rows) < R:
+            for r in synth_part(rng, 64, lo, hi):
+                b.add(gid, r[1])
+                gid += 1
+        tile = b.tiles()[0]
+        words = [di.to_device_words(a, dev) for a in
+                 (tile.codes2, tile.nmask, tile.startmask, tile.endmask)]
+        ints = [torch.from_numpy(a).to(dev) for a in (tile.starts, tile.gids)]
+        args = words + ints
+        kern = skc.sketch_tiles(*args, W=W, k=k, w=w)
+        plain = skc.sketch_tiles_plain(*args, W=W, k=k, w=w)
+        torch.cuda.synchronize()
+        err = require_equal("sketch emit %dx%d" % (R, W), kern["emit"],
+                            plain["emit"])
+        on = plain["emit"] > 0
+        for f in ("hash", "rid", "pos", "strand"):
+            err = max(err, require_equal("sketch %s %dx%d" % (f, R, W),
+                                         kern[f][on], plain[f][on]))
+        ms = cuda_ms(lambda: skc.sketch_tiles(*args, W=W, k=k, w=w), 5)
+        pms = cuda_ms(lambda: skc.sketch_tiles_plain(*args, W=W, k=k, w=w),
+                      2)
+        log("B1 sketch %dx%d: equal (%d emissions); kernel %.3f ms, "
+            "plain %.3f ms" % (R, W, int(plain["emit"].sum()), ms, pms))
+        out.setdefault("sketch", dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                      shape="%dx%d" % (R, W)))
+    return out
+
+
+def rand_anchor_rows(rng, Q, A):
+    """Anchor rows shaped like the engine's: sorted target positions in
+    a few (rid, rev) groups, clustered diagonals, repeat-dense runs."""
+    import numpy as np
+    axh = np.zeros((Q, A), np.int32)
+    axl = np.zeros((Q, A), np.int32)
+    aq = np.zeros((Q, A), np.int32)
+    nb = np.zeros(Q, np.int32)
+    for r in range(Q):
+        n = rng.randint(A // 2, A + 1)
+        nb[r] = n
+        # target reads of 40-400 anchors each, sorted by (rid, pos)
+        grp = np.sort(rng.randint(0, max(1, n // rng.randint(40, 400)), n))
+        pos = rng.randint(0, 8000, n)
+        if r % 8 == 0:      # repeat-dense: many anchors per position band
+            pos = rng.randint(0, 1000, n)
+        pos = pos[np.lexsort((pos, grp))]
+        diag = rng.randint(0, 3, n) * rng.randint(1, 400)
+        q = pos + diag + rng.randint(-40, 40, n)
+        axh[r, :n] = grp
+        axl[r, :n] = pos
+        aq[r, :n] = np.clip(q, 0, None)
+    return axh, axl, aq, nb
+
+
+def check_chain_ringprop(dev, k, bw=500):
+    import numpy as np
+    import torch
+    from longqc_tpu_torch.ops.chain import gap_penalty_table, make_carry
+    from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill
+    from longqc_tpu_torch.ops.chain import chain_dp_batch
+    from longqc_tpu_torch.ops import ringprop as rp
+
+    Q, A = 128, 8192
+    rng = np.random.RandomState(3)
+    axh, axl, aq, nb = (torch.from_numpy(a).to(dev)
+                        for a in rand_anchor_rows(rng, Q, A))
+    A = axh.shape[1]
+    span = torch.full((Q, A), k, dtype=torch.int32, device=dev)
+    pen = torch.from_numpy(gap_penalty_table(np.float32(k), bw)).to(dev)
+    out = {}
+    for J in (64, 128, 256):
+        def kern():
+            return chain_dp_fill(axh, axl, aq, span, nb, pen,
+                                 make_carry(Q, J, dev), 0, J=J, bw=bw)
+        fk, pk, vk, flk, ck = kern()
+        t = time.time()
+        fp, pp, vp, flp, cp = chain_dp_batch(axh, axl, aq, span, nb, pen,
+                                             make_carry(Q, J, dev), 0, J=J,
+                                             bw=bw)
+        torch.cuda.synchronize()
+        pms = (time.time() - t) * 1e3
+        err = 0
+        for nm, a, b in (("f", fk, fp), ("p", pk, pp), ("v", vk, vp),
+                         ("flags", flk, flp), ("carry", ck[0], cp[0]),
+                         ("carry flag", ck[1], cp[1])):
+            err = max(err, require_equal("chain J=%d %s" % (J, nm), a, b))
+        ms = cuda_ms(kern, 3)
+        log("B2 chain Q=%d A=%d J=%d: equal (%d/%d rows flagged); kernel "
+            "%.3f ms, plain %.3f ms" % (Q, A, J, int(flk.sum()), Q, ms, pms))
+        if J == 64:
+            out["chain"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                shape="Q=%d A=%d J=%d" % (Q, A, J))
+            f64, p64, v64 = fk, pk, vk
+
+    pk_k = rp.peak_pass(f64, v64, p64, J=64)
+    t = time.time()
+    pk_p = rp.peak_pass_plain(f64, v64, p64, J=64)
+    torch.cuda.synchronize()
+    pms = (time.time() - t) * 1e3
+    err = require_equal("peak", pk_k, pk_p)
+    ms = cuda_ms(lambda: rp.peak_pass(f64, v64, p64, J=64), 5)
+    log("B3 peak Q=%d A=%d: equal; kernel %.3f ms, plain %.3f ms"
+        % (Q, A, ms, pms))
+    out["peak"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                       shape="Q=%d A=%d" % (Q, A))
+
+    # own ranks at chain ends (anchors nobody points at), random order
+    g = torch.Generator(device="cpu").manual_seed(9)
+    on = torch.arange(A, device=dev)[None, :] < nb[:, None].long()
+    child = (p64 >= 0) & on
+    is_par = torch.zeros((Q, A + 1), dtype=torch.bool, device=dev)
+    is_par.scatter_(1, torch.where(child, p64, A).long(), True)
+    ends = on & ~is_par[:, :A]
+    ranks = torch.randint(0, 4096, (Q, A), generator=g).to(dev).int()
+    own = torch.where(ends, ranks, rp.INF32).int()
+    mr_k = rp.minrank_pass(p64, own, J=64)
+    t = time.time()
+    mr_p = rp.minrank_pass_plain(p64, own, J=64)
+    torch.cuda.synchronize()
+    pms = (time.time() - t) * 1e3
+    err = require_equal("minrank", mr_k, mr_p)
+    ms = cuda_ms(lambda: rp.minrank_pass(p64, own, J=64), 5)
+    log("B4 minrank Q=%d A=%d: equal; kernel %.3f ms, plain %.3f ms"
+        % (Q, A, ms, pms))
+    out["minrank"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                          shape="Q=%d A=%d" % (Q, A))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5
+
+
+def small_end_to_end(dev):
+    import numpy as np
+    from util_synth import make_genome, sample_reads
+    from longqc_tpu_torch.config import FltOpt, IndexOpt, MapOpt, \
+        OverlapConfig
+    from longqc_tpu_torch.engine import overlap_host as oh
+    from longqc_tpu_torch.engine.device_overlap import DeviceOverlapEngine
+
+    rng = np.random.RandomState(11)
+    genome = make_genome(rng, 30000)
+    reads = sample_reads(rng, genome, 150, min_len=700, max_len=2200,
+                         err=0.12, junk_frac=0.1)
+    queries = reads[:40]
+    cfg = OverlapConfig(index=IndexOpt(k=12, w=5),
+                        map=MapOpt(min_score_med=80, min_score_good=160),
+                        flt=FltOpt(min_ovlp=0))
+    rows_host = oh.overlap_run(list(reads), queries, cfg)
+    eng = DeviceOverlapEngine(cfg, queries, device=dev)
+    rows_dev = eng.run(list(reads))
+    bad = [i for i, (a, b) in enumerate(zip(rows_host, rows_dev)) if a != b]
+    if bad or len(rows_dev) != len(rows_host):
+        raise AssertionError("small end to end: %d rows differ from the "
+                             "host spec" % len(bad))
+    log("small end to end: %d rows equal the host spec (%d step calls, "
+        "%d host-fixed)" % (len(rows_dev), eng.n_device_calls,
+                            eng.n_host_fallback))
+
+
+def write_fastq(path, reads):
+    with open(path, "w") as f:
+        for name, seq, qual in reads:
+            f.write("@%s\n%s\n+\n%s\n" % (name, seq, qual))
+
+
+def realistic_mmcov(dev, workdir):
+    import numpy as np
+    import torch
+    from util_synth import make_genome_fast, sample_reads_fast
+    from longqc_tpu_torch import cli
+    from longqc_tpu_torch.config import FltOpt, IndexOpt, MapOpt, \
+        OverlapConfig, parse_num
+    from longqc_tpu_torch.engine import overlap_host as oh
+    from longqc_tpu_torch.ops import _ext
+
+    t = time.time()
+    rng = np.random.RandomState(2024)
+    genome = make_genome_fast(rng, 10_000_000)
+    targets = sample_reads_fast(rng, genome, N_TARGETS, min_len=1000,
+                                max_len=8000, err=0.12, junk_frac=0.1)
+    n_q = N_QUERIES
+    queries = targets[:n_q]
+    tpath = os.path.join(workdir, "targets.fq")
+    qpath = os.path.join(workdir, "queries.fq")
+    write_fastq(tpath, targets)
+    write_fastq(qpath, queries)
+    tbp = sum(len(r[1]) for r in targets)
+    log("realistic data: %d targets (%d bp, %.2fx of 10 Mbp), %d queries, "
+        "made in %.1f s" % (N_TARGETS, tbp, tbp / 1e7, n_q,
+                            time.time() - t))
+
+    argv = ["mmcov", "-k", "12", "-w", "5", "-p", "160", "-q", "160",
+            "-l", "0", "--device", str(dev), "--stats",
+            os.path.join(workdir, "stats.json"), tpath, qpath]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launches()
+    buf = io.StringIO()
+    t = time.time()
+    with redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = dict(_ext.LAUNCHES)
+    peak_mem = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise AssertionError("mmcov returned %d" % rc)
+    with open(os.path.join(workdir, "stats.json")) as f:
+        stats = json.load(f)
+    rows = buf.getvalue().rstrip("\n").split("\n")
+    log("mmcov %s" % " ".join(argv[:-2] + ["targets.fq", "queries.fq"]))
+    log("mmcov wall %.2f s; phase_s %s" % (
+        wall, json.dumps({k: round(v, 3)
+                          for k, v in stats["phase_s"].items()})))
+    log("step calls %d, retry steps %d, flag counts %s, host-fixed rows "
+        "%d, host-only parts %d" % (
+            stats["device_calls"], stats["retry_steps"],
+            stats["flag_counts"], stats["host_fixed_rows"],
+            stats["host_only_parts"]))
+    log("kernel launches %s; max_memory_allocated %d bytes (%.2f GB)"
+        % (launches, peak_mem, peak_mem / 1e9))
+    if len(rows) != n_q:
+        raise AssertionError("mmcov printed %d rows for %d queries"
+                             % (len(rows), n_q))
+    for name in SOURCES:
+        if not launches.get(name):
+            raise AssertionError("kernel %s was not launched by the "
+                                 "mmcov run" % name)
+    if stats["host_fixed_rows"] > 0.05 * n_q:
+        raise AssertionError("host-fixed rows %d exceed 5%% of %d queries"
+                             % (stats["host_fixed_rows"], n_q))
+    covered = sum(1 for r in rows if r.split("\t")[3] != "0")
+    log("rows with reliable regions: %d / %d" % (covered, n_q))
+
+    # 32 random queries against the port's host spec over the same
+    # targets (the host spec's tensor sketch runs on the card too)
+    pick = sorted(random.Random(7).sample(range(n_q), 32))
+    cfg = OverlapConfig(
+        index=IndexOpt(k=12, w=5, batch_size=parse_num("4G")),
+        map=MapOpt(min_score_med=160, min_score_good=160,
+                   min_chain_score=40),
+        flt=FltOpt(min_ovlp=0, min_coverage=3))
+    t = time.time()
+    want = oh.overlap_run(iter(targets), [queries[i] for i in pick], cfg,
+                          device=dev)
+    bad = [i for i, r in zip(pick, want) if rows[i] != r]
+    if bad:
+        raise AssertionError("%d of 32 sampled rows differ from the host "
+                             "spec (first: query %d)" % (len(bad), bad[0]))
+    log("32 sampled rows equal the host spec (host spec %.1f s)"
+        % (time.time() - t))
+    return launches
+
+
+def main():
+    t_all = time.time()
+    if not os.path.isdir(os.path.join(HERE, "longqc_tpu_torch")):
+        raise SystemExit("chip_smoke.py must run from a checkout of the "
+                         "repository (longqc_tpu_torch/ not found)")
+    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+
+    # --- phase 1: environment
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: torch.cuda.is_available() is "
+                         "false")
+    card = card_line()
+    log("card: %s" % card)
+    from longqc_tpu_torch.ops import _ext
+    try:
+        import triton
+        tri = triton.__version__
+    except ImportError:
+        tri = "not importable"
+    log("python %s; torch %s; torch.version.cuda %s; nvcc %s; triton %s"
+        % (sys.version.split()[0], torch.__version__, torch.version.cuda,
+           _ext.nvcc_path(), tri))
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+
+    # --- phase 2: build
+    t = time.time()
+    mod = _ext.lib(verbose=True)
+    log("built %s in %.1f s" % (os.path.relpath(mod.__file__, HERE),
+                                time.time() - t))
+
+    # --- phase 3: kernels vs plain versions
+    k, w = 12, 5
+    res = check_sketch(dev, k, w)
+    res.update(check_chain_ringprop(dev, k))
+
+    # --- phase 4: small end to end
+    small_end_to_end(dev)
+
+    # --- phase 5: realistic mmcov run
+    workdir = tempfile.mkdtemp(prefix="longqc_smoke_")
+    try:
+        launches = realistic_mmcov(dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    log("total %.1f s" % (time.time() - t_all))
+    kernels = []
+    for name, (src, rep) in SOURCES.items():
+        r = res[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "shape": r["shape"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,45 @@
+"""Carry JAX-built state across into the port's tensors.
+
+The JAX package's device index (engine/device_index.build_device_index:
+ih, irid, ips, mid_occ) and a JAX query group's staged arrays and
+accumulators (engine/device_overlap._Group) become the port's tensors on
+a given device, so one input can be fed to both packages' step programs
+and their intermediates compared. Everything arrives as numpy arrays
+(np.asarray of the JAX arrays); this module imports no jax.
+"""
+
+import numpy as np
+import torch
+
+GROUP_ARRAYS = ("qh", "qps", "qcnt", "n_slots", "n_exp", "qlen", "qvalid")
+STATE_ARRAYS = ("lam", "lam2", "avgk_set", "m_cnts")
+
+
+def _t(a, dtype, device):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(dtype))
+                            ).to(device)
+
+
+def index_from_arrays(ih, irid, ips, mid_occ, device="cpu"):
+    """A flat JAX index (1-D int32 ih/irid/ips, scalar mid_occ) as the
+    port's index dict."""
+    ih = np.asarray(ih)
+    if ih.ndim != 1:
+        raise ValueError("only the flat (1-D) index layout is ported")
+    return {"ih": _t(ih, np.int32, device),
+            "irid": _t(irid, np.int32, device),
+            "ips": _t(ips, np.int32, device),
+            "mid_occ": torch.tensor(int(np.asarray(mid_occ)),
+                                    dtype=torch.int32, device=device)}
+
+
+def group_from_arrays(arrays, device="cpu"):
+    """A JAX query group's staged arrays (GROUP_ARRAYS: qh, qps, qcnt,
+    n_slots, n_exp, qlen, qvalid) and accumulators (STATE_ARRAYS: lam,
+    lam2 int64; avgk_set, m_cnts int32) as port tensors; `arrays` maps
+    those names to numpy arrays."""
+    out = {n: _t(arrays[n], np.int32, device) for n in GROUP_ARRAYS}
+    for n in STATE_ARRAYS:
+        dt = np.int64 if n in ("lam", "lam2") else np.int32
+        out[n] = _t(arrays[n], dt, device)
+    return out

@@ -1,0 +1,80 @@
+// PyTorch bindings of the hand-written kernels (kernels.h).
+//
+// Each binding makes the device of its tensors current (CUDAGuard) and
+// launches on that device's current stream, so a tensor on any card is
+// launched where it lives. The Python wrappers (ops/sketch_cuda.py,
+// ops/chain_cuda.py, ops/ringprop.py) check shapes, dtypes, devices and
+// contiguity, allocate the outputs and count the launches.
+
+#include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <torch/extension.h>
+
+#include "kernels.h"
+
+namespace {
+
+using T = const at::Tensor&;
+
+void* stream_of(T t) {
+  return (void*)at::cuda::getCurrentCUDAStream(t.device().index()).stream();
+}
+
+void check_launch(int code, const char* name) {
+  TORCH_CHECK(code == 0, name, " launch failed: ",
+              cudaGetErrorString((cudaError_t)code));
+}
+
+void sketch_rows(T codes2, T nmask, T smask, T emask, T starts, T gids,
+                 T emit, T hash, T rid, T pos, T strand, int64_t W,
+                 int64_t k, int64_t w) {
+  const c10::cuda::CUDAGuard guard(codes2.device());
+  check_launch(
+      lq_sketch_rows(codes2.data_ptr(), nmask.data_ptr(), smask.data_ptr(),
+                     emask.data_ptr(), starts.data_ptr(), gids.data_ptr(),
+                     emit.data_ptr(), hash.data_ptr(), rid.data_ptr(),
+                     pos.data_ptr(), strand.data_ptr(), (int)codes2.size(0),
+                     (int)W, (int)k, (int)w, stream_of(codes2)),
+      "sketch");
+}
+
+void chain_fill(T axh, T axl, T aq, T asp, T nb, T pen, T carry_in,
+                T cflag_in, T f, T p, T v, T carry_out, T cflag_out,
+                int64_t J, int64_t bw, int64_t max_dist, int64_t max_skip,
+                int64_t i0) {
+  const c10::cuda::CUDAGuard guard(axh.device());
+  check_launch(
+      lq_chain_fill(axh.data_ptr(), axl.data_ptr(), aq.data_ptr(),
+                    asp.data_ptr(), nb.data_ptr(), pen.data_ptr(),
+                    carry_in.data_ptr(), cflag_in.data_ptr(), f.data_ptr(),
+                    p.data_ptr(), v.data_ptr(), carry_out.data_ptr(),
+                    cflag_out.data_ptr(), (int)axh.size(0), (int)axh.size(1),
+                    (int)J, (int)bw, (int)max_dist, (int)max_skip, (int)i0,
+                    stream_of(axh)),
+      "chain");
+}
+
+void peak_pass(T f, T v, T p, T peak, int64_t J) {
+  const c10::cuda::CUDAGuard guard(f.device());
+  check_launch(lq_peak_pass(f.data_ptr(), v.data_ptr(), p.data_ptr(),
+                            peak.data_ptr(), (int)f.size(0), (int)f.size(1),
+                            (int)J, stream_of(f)),
+               "peak");
+}
+
+void minrank_pass(T p, T own, T r, int64_t J) {
+  const c10::cuda::CUDAGuard guard(p.device());
+  check_launch(lq_minrank_pass(p.data_ptr(), own.data_ptr(), r.data_ptr(),
+                               (int)p.size(0), (int)p.size(1), (int)J,
+                               stream_of(p)),
+               "minrank");
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("sketch_rows", &sketch_rows, "B1 minimizer sketch of packed rows");
+  m.def("chain_fill", &chain_fill, "B2 chain-DP score fill");
+  m.def("peak_pass", &peak_pass, "B3 peak pass");
+  m.def("minrank_pass", &minrank_pass, "B4 min-rank pass");
+}

@@ -1,0 +1,54 @@
+"""B2: the chain-DP score fill kernel (csrc/chain.cu).
+
+`chain_dp_fill` launches the hand-written kernel on CUDA tensors (the
+port of longqc_tpu/ops/chain_pallas.chain_dp_batch_pallas) and runs the
+plain version ops/chain.chain_dp_batch on CPU tensors; both have the
+same contract (see there). Differences from the TPU kernel's contract:
+the layout is (Q, A) row-major, the carry is (7, Q, J) + (Q,), and the
+gap cost comes from the f64-exact table instead of fixed-point limbs,
+so there is no per-row "no exact multiplier" flag and bw is bounded
+only by the shared memory that holds the table beside the ring
+(MAX_BW).
+"""
+
+import torch
+
+from longqc_tpu_torch.ops import _ext
+from longqc_tpu_torch.ops.chain import chain_dp_batch
+
+J_RUNGS = (64, 128, 256)
+# the table (padded to 4 words) and one 7 x 256 ring must fit one block's
+# 232448 bytes of shared memory
+MAX_BW = 232448 // 4 - 7 * 256 - 4
+
+
+def chain_dp_fill(ax_hi, ax_lo, aq, aspan, n_anchors, pen_tab, carry, i0,
+                  *, J=64, max_dist=10000, bw=500, max_skip=25):
+    """Resumable batched chain-DP fill -> (f, p, v, flags, carry)."""
+    if J not in J_RUNGS:
+        raise ValueError("chain kernel ring depth J must be one of %s"
+                         % (J_RUNGS,))
+    if bw > MAX_BW or tuple(pen_tab.shape) != (bw + 1,):
+        raise ValueError("penalty table must be (bw+1,) with bw <= %d"
+                         % MAX_BW)
+    Q, A = ax_hi.shape
+    ring, cflag = carry
+    if tuple(ring.shape) != (7, Q, J) or tuple(cflag.shape) != (Q,):
+        raise ValueError("carry shape does not match (Q, J)")
+    if ax_hi.device.type == "cpu":
+        return chain_dp_batch(ax_hi, ax_lo, aq, aspan, n_anchors, pen_tab,
+                              carry, i0, J=J, max_dist=max_dist, bw=bw,
+                              max_skip=max_skip)
+    ins = [t.contiguous() for t in (ax_hi, ax_lo, aq, aspan, n_anchors,
+                                    pen_tab, ring, cflag)]
+    _ext.require_cuda(*ins)
+    dev = ax_hi.device
+    f, p, v = (torch.empty((Q, A), dtype=torch.int32, device=dev)
+               for _ in range(3))
+    ring_out = torch.empty_like(ring)
+    flag_out = torch.empty_like(cflag)
+    lib = _ext.lib()
+    _ext.LAUNCHES["chain"] += 1
+    lib.chain_fill(*ins, f, p, v, ring_out, flag_out, J, bw, max_dist,
+                   max_skip, int(i0))
+    return f, p, v, flag_out != 0, (ring_out, flag_out)

@@ -1,0 +1,94 @@
+"""Port device index (flat layout, plain B1 on CPU tensors) vs the JAX
+package's build_device_index: the same sorted (hash, rid, pos) multiset
+and the same mid_occ. The JAX single-key sort is unstable, so entries
+compare as multisets."""
+
+import numpy as np
+import pytest
+import torch
+import torch_util  # noqa: F401
+
+from longqc_tpu.engine import device_index as jdi
+from longqc_tpu_torch.engine import device_index as di
+from longqc_tpu_torch.engine import overlap_host as toh
+from longqc_tpu_torch.ops.ringprop import INF32
+
+
+def _rand_reads(rng, n, lo, hi, with_n=True):
+    reads = []
+    for i in range(n):
+        ln = rng.randint(lo, hi)
+        s = "".join("ACGT"[j] for j in rng.randint(0, 4, ln))
+        if with_n and ln > 10 and rng.rand() < 0.5:
+            p = rng.randint(0, ln - 5)
+            s = s[:p] + "N" * rng.randint(1, 4) + s[p + 3:]
+        reads.append(["r%04d" % i, s, ""])
+    return reads
+
+
+def _triples(ih, irid, ips):
+    ih, irid, ips = (np.asarray(a) for a in (ih, irid, ips))
+    keep = ih != INF32
+    return sorted(zip(ih[keep].tolist(), irid[keep].tolist(),
+                      ips[keep].tolist()))
+
+
+@pytest.mark.parametrize("k,w", [(12, 5), (15, 5), (12, 10)])
+def test_build_device_index_matches_jax(k, w):
+    rng = np.random.RandomState(11 + k + w)
+    part = _rand_reads(rng, 120, 40, 1500)
+    jidx = jdi.build_device_index(part, k, w, ladder=jdi.TILE_LADDER_SMALL,
+                                  n_idx_sizes=jdi.N_IDX_SIZES_SMALL)
+    idx = di.build_device_index(part, k, w, device="cpu",
+                                ladder=di.TILE_LADDER_SMALL,
+                                n_idx_sizes=di.N_IDX_SIZES_SMALL)
+    got = _triples(idx["ih"], idx["irid"], idx["ips"])
+    assert got == _triples(jidx["ih"], jidx["irid"], jidx["ips"])
+    assert (np.diff(idx["ih"].numpy()) >= 0).all()
+    assert int(idx["mid_occ"]) == int(np.asarray(jidx["mid_occ"]))
+    # and the port's host spec index holds the same entries
+    hidx = toh.build_index(part, k, w)
+    want = sorted(zip(hidx.h.astype(np.uint32).astype(np.int32).tolist(),
+                      hidx.rid.tolist(), hidx.ps.tolist()))
+    assert got == want
+
+
+def test_build_device_index_mid_occ_frac():
+    rng = np.random.RandomState(5)
+    core = "".join("ACGT"[j] for j in rng.randint(0, 4, 300))
+    part = [["c%d" % i, core, ""] for i in range(30)]
+    part += _rand_reads(rng, 20, 50, 400)
+    for frac in (0.5, 0.1, 2e-4):
+        jidx = jdi.build_device_index(part, 12, 5,
+                                      ladder=jdi.TILE_LADDER_SMALL,
+                                      n_idx_sizes=jdi.N_IDX_SIZES_SMALL,
+                                      mid_occ_frac=frac)
+        idx = di.build_device_index(part, 12, 5, device="cpu",
+                                    ladder=di.TILE_LADDER_SMALL,
+                                    n_idx_sizes=di.N_IDX_SIZES_SMALL,
+                                    mid_occ_frac=frac)
+        assert int(idx["mid_occ"]) == int(np.asarray(jidx["mid_occ"]))
+
+
+def test_tile_flat_chunks_match_jax_tiles():
+    rng = np.random.RandomState(7)
+    part = _rand_reads(rng, 40, 30, 900)
+    tiles, jumbo = di.pack_part_tiles(part, 5, ladder=di.TILE_LADDER_SMALL)
+    jtiles, _ = jdi.pack_part_tiles(part, 5, ladder=jdi.TILE_LADDER_SMALL)
+    assert not jumbo and len(tiles) == len(jtiles)
+    for t, jt in zip(tiles, jtiles):
+        ih, irid, ips, n_exp, row_ov, _ = di._run_tile(t, 12, 5, "cpu")
+        jr = jdi._run_tile(jt, 12, 5)
+        assert not row_ov.any()
+        assert int(n_exp) == int(np.asarray(jr[3]))
+        assert _triples(ih, irid, ips) == _triples(*jr[:3])
+
+
+def test_part_past_the_width_ladder_raises():
+    rng = np.random.RandomState(3)
+    part = _rand_reads(rng, 30, 200, 600)
+    with pytest.raises(di.IndexOverflowError):
+        di.build_device_index(part, 12, 5, device="cpu",
+                              ladder=di.TILE_LADDER_SMALL,
+                              n_idx_sizes=(1 << 10,))
+    assert torch.get_num_threads() == 2

@@ -1,0 +1,75 @@
+"""The port package never imports jax, builds no kernel on import or on
+the CPU paths, and never falls back from CUDA to the CPU on its own."""
+
+import subprocess
+import sys
+
+import pytest
+import torch
+import torch_util  # noqa: F401
+
+from longqc_tpu_torch.config import FltOpt, IndexOpt, MapOpt, OverlapConfig
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import torch
+import longqc_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(longqc_tpu_torch.__path__,
+                                              "longqc_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+assert "jax" not in sys.modules, "jax imported"
+assert not any(m == "longqc_tpu" or m.startswith("longqc_tpu.")
+               for m in sys.modules), "JAX package imported"
+from longqc_tpu_torch.ops import _ext, sketch_cuda, ringprop
+from longqc_tpu_torch.engine import device_index as di
+# CPU tensors take the plain versions: no kernel build, no launch
+packed = di.pack_single_rows(["ACGTTGCAAGGCTTAACCGG" * 20], 512)
+words = [di.to_device_words(a, "cpu") for a in packed[:4]]
+ints = [torch.from_numpy(a) for a in packed[4:]]
+res = sketch_cuda.sketch_tiles(*words, *ints, W=512, k=12, w=5)
+assert int(res["emit"].sum()) > 0
+z = torch.zeros((2, 256), dtype=torch.int32)
+ringprop.peak_pass(z, z, z - 1)
+assert _ext._lib is None and not _ext.LAUNCHES
+print(len(mods))
+"""
+
+
+def test_import_leaves_jax_out_and_builds_nothing():
+    out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15
+
+
+def test_engine_never_drops_to_cpu_on_its_own():
+    from longqc_tpu_torch.engine.device_overlap import DeviceOverlapEngine
+
+    cfg = OverlapConfig(index=IndexOpt(k=12, w=5), map=MapOpt(),
+                        flt=FltOpt())
+    q = [["q", "ACGT" * 100, ""]]
+    if torch.cuda.is_available():
+        assert DeviceOverlapEngine(cfg, q).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            DeviceOverlapEngine(cfg, q)       # default device is cuda
+    assert DeviceOverlapEngine(cfg, q, device="cpu").device.type == "cpu"
+
+
+def test_kernel_wrappers_refuse_cpu_mixed_inputs():
+    from longqc_tpu_torch.ops import _ext
+
+    with pytest.raises(ValueError):
+        _ext.require_cuda(torch.zeros(3, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("cfg", [
+    OverlapConfig(index=IndexOpt(k=15, w=10, is_hpc=True)),
+    OverlapConfig(index=IndexOpt(k=19, w=10)),
+], ids=["hpc", "wide"])
+def test_unported_configs_raise(cfg):
+    from longqc_tpu_torch.engine.overlap import overlap_run_device
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        overlap_run_device([], [["q", "ACGT" * 50, ""]], cfg, device="cpu")
