@@ -7,11 +7,13 @@ Phases (any failure raises, so the script exits nonzero and never
 prints the final result line):
   1. environment: card name and power limit, torch / CUDA / nvcc /
      triton; no CUDA device -> fail
-  2. build the four kernels (B1 sketch, B2 chain fill, B3 peak,
-     B4 min-rank) from longqc_tpu_torch/csrc
-  3. each kernel against its plain PyTorch version on the card, at
+  2. build the five kernels (B1 sketch, B2 chain fill, B3 peak,
+     B4 min-rank, B5 extension) from longqc_tpu_torch/csrc
+  3. B1-B4 against their plain PyTorch versions on the card, at
      production shapes, with exact equality (tolerance 0: all outputs
-     are integers); both times printed
+     are integers; B2 twice: with the one gap-penalty table of the
+     plain engine, row stride 0, and with one table per row, as the HPC
+     engine gives it); both times printed
   4. small end to end: the engine's rows on the card equal the port's
      host spec (overlap_host.overlap_run)
   5. realistic `mmcov` run through longqc_tpu_torch.cli.main at the
@@ -19,8 +21,21 @@ prints the final result line):
      10 Mbp genome, 20,000 target reads of 1-8 kbp (~9x), 5,000
      queries; kernel launch counts, host-fixed rows (<= 5%) and 32
      random queries' rows against the host spec
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+  6. B5, the banded extension (ops/extend.extz_batch), on 8,192 pairs
+     of 500-4,000 bp (10 Mbp genome, err 0.12, 20% unrelated pairs so
+     Z-drop fires; W=63, zdrop=400, scores 2/-4/4/2, extd adds 24/1):
+     extz and extd kernels against their plain version on the same
+     tensors, all eight outputs exact; 16 short pairs against the
+     full-DP host reference
+  7. the HPC spike-in-control filter run through cli.main
+     (mmcov -H -k 15 -w 10 -c 1 -l 0 --filter) against the Sequel
+     control reference in the repository: 5,000 queries of 1-8 kbp,
+     100 of them from the (unrolled) control; B2-B4 launch counts,
+     host-fixed rows (<= 5%) and the rows of every control-derived
+     query and 32 random others against the host spec
+Kernel launch counts are reset just before each path (phases 5, 6, 7)
+and read just after it. The line before the last is
+{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -49,7 +64,13 @@ SOURCES = {
              "longqc_tpu/ops/ringprop.py:116"),
     "minrank": ("longqc_tpu_torch/csrc/ringprop.cu",
                 "longqc_tpu/ops/ringprop.py:137"),
+    "extz": ("longqc_tpu_torch/csrc/extend.cu",
+             "longqc_tpu/ops/extend_pallas.py:192"),
+    "extd": ("longqc_tpu_torch/csrc/extend.cu",
+             "longqc_tpu/ops/extend_pallas.py:192"),
 }
+MMCOV_KERNELS = ("sketch", "chain", "peak", "minrank")
+HPC_KERNELS = ("chain", "peak", "minrank")
 
 
 def log(*a):
@@ -187,31 +208,42 @@ def check_chain_ringprop(dev, k, bw=500):
                         for a in rand_anchor_rows(rng, Q, A))
     A = axh.shape[1]
     span = torch.full((Q, A), k, dtype=torch.int32, device=dev)
-    pen = torch.from_numpy(gap_penalty_table(np.float32(k), bw)).to(dev)
+    # the plain engine's one table (row stride 0), then one table per
+    # row fitted to distinct mean spans (the HPC engine's)
+    tables = {"one table": torch.from_numpy(
+        gap_penalty_table(np.float32(k), bw)[None]).to(dev),
+        "per-row tables": torch.from_numpy(np.stack([
+            gap_penalty_table(np.float32(k + r / 7), bw)
+            for r in range(Q)])).to(dev)}
     out = {}
-    for J in (64, 128, 256):
-        def kern():
-            return chain_dp_fill(axh, axl, aq, span, nb, pen,
-                                 make_carry(Q, J, dev), 0, J=J, bw=bw)
-        fk, pk, vk, flk, ck = kern()
-        t = time.time()
-        fp, pp, vp, flp, cp = chain_dp_batch(axh, axl, aq, span, nb, pen,
-                                             make_carry(Q, J, dev), 0, J=J,
-                                             bw=bw)
-        torch.cuda.synchronize()
-        pms = (time.time() - t) * 1e3
-        err = 0
-        for nm, a, b in (("f", fk, fp), ("p", pk, pp), ("v", vk, vp),
-                         ("flags", flk, flp), ("carry", ck[0], cp[0]),
-                         ("carry flag", ck[1], cp[1])):
-            err = max(err, require_equal("chain J=%d %s" % (J, nm), a, b))
-        ms = cuda_ms(kern, 3)
-        log("B2 chain Q=%d A=%d J=%d: equal (%d/%d rows flagged); kernel "
-            "%.3f ms, plain %.3f ms" % (Q, A, J, int(flk.sum()), Q, ms, pms))
-        if J == 64:
-            out["chain"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                shape="Q=%d A=%d J=%d" % (Q, A, J))
-            f64, p64, v64 = fk, pk, vk
+    for tab, pen in tables.items():
+        for J in (64, 128, 256):
+            def kern():
+                return chain_dp_fill(axh, axl, aq, span, nb, pen,
+                                     make_carry(Q, J, dev), 0, J=J, bw=bw)
+            fk, pk, vk, flk, ck = kern()
+            t = time.time()
+            fp, pp, vp, flp, cp = chain_dp_batch(
+                axh, axl, aq, span, nb, pen, make_carry(Q, J, dev), 0, J=J,
+                bw=bw)
+            torch.cuda.synchronize()
+            pms = (time.time() - t) * 1e3
+            err = 0
+            for nm, a, b in (("f", fk, fp), ("p", pk, pp), ("v", vk, vp),
+                             ("flags", flk, flp), ("carry", ck[0], cp[0]),
+                             ("carry flag", ck[1], cp[1])):
+                err = max(err, require_equal("chain %s J=%d %s"
+                                             % (tab, J, nm), a, b))
+            ms = cuda_ms(kern, 3)
+            log("B2 chain Q=%d A=%d J=%d, %s: equal (%d/%d rows flagged); "
+                "kernel %.3f ms, plain %.3f ms"
+                % (Q, A, J, tab, int(flk.sum()), Q, ms, pms))
+            if J == 64:
+                prev = out.get("chain", {}).get("max_abs_err", 0)
+                out["chain"] = dict(max_abs_err=max(err, prev), ms=ms,
+                                    plain_ms=pms,
+                                    shape="Q=%d A=%d J=%d" % (Q, A, J))
+                f64, p64, v64 = fk, pk, vk
 
     pk_k = rp.peak_pass(f64, v64, p64, J=64)
     t = time.time()
@@ -345,7 +377,7 @@ def realistic_mmcov(dev, workdir):
     if len(rows) != n_q:
         raise AssertionError("mmcov printed %d rows for %d queries"
                              % (len(rows), n_q))
-    for name in SOURCES:
+    for name in MMCOV_KERNELS:
         if not launches.get(name):
             raise AssertionError("kernel %s was not launched by the "
                                  "mmcov run" % name)
@@ -372,6 +404,234 @@ def realistic_mmcov(dev, workdir):
                              "spec (first: query %d)" % (len(bad), bad[0]))
     log("32 sampled rows equal the host spec (host spec %.1f s)"
         % (time.time() - t))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: B5 banded extension
+
+
+def extension_pairs(rng, genome, n, lo, hi, err, unrelated):
+    """(B, L) int32 query / target codes and (B,) lengths of pairs that
+    start at one genome point (an extension from a seed), each side of
+    lo..hi bp and mutated on its own (substitution / deletion /
+    insertion at err * 0.5 / 0.25 / 0.25, as util_synth's reads); a
+    share `unrelated` of the targets is random sequence."""
+    import numpy as np
+    code = np.full(256, 4, np.uint8)
+    code[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    g = code[np.frombuffer(genome.encode("ascii"), np.uint8)]
+
+    def mutate(seq):
+        r = rng.random_sample(len(seq))
+        seq = seq.copy()
+        sub = r < err * 0.5
+        seq[sub] = rng.randint(0, 4, int(sub.sum()))
+        rep = np.ones(len(seq), np.int64)
+        rep[(r >= err * 0.5) & (r < err * 0.75)] = 0
+        rep[(r >= err * 0.75) & (r < err)] = 2
+        return np.repeat(seq, rep)[:hi]
+
+    qs, ts = [], []
+    for _ in range(n):
+        lq, lt = rng.randint(lo, hi + 1, 2)
+        s = rng.randint(0, len(g) - max(lq, lt))
+        qs.append(mutate(g[s:s + lq]))
+        if rng.random_sample() < unrelated:
+            ts.append(rng.randint(0, 4, lt).astype(np.uint8))
+        else:
+            ts.append(mutate(g[s:s + lt]))
+
+    def pad(seqs):
+        a = np.full((n, max(len(x) for x in seqs)), 4, np.int32)
+        for i, x in enumerate(seqs):
+            a[i, :len(x)] = x
+        return a, np.array([len(x) for x in seqs], np.int32)
+
+    return pad(qs) + pad(ts)
+
+
+def check_extend(dev, B=8192, W=63, zdrop=400):
+    """B5 through its entry point (ops/extend.extz_batch) on CUDA
+    tensors, extz and extd; then each against the plain version on the
+    same tensors, and short pairs against the host reference. Returns
+    (per-mode results, launch counts of the entry-point calls)."""
+    import numpy as np
+    import torch
+    from util_synth import make_genome_fast
+    from longqc_tpu_torch.ops import _ext
+    from longqc_tpu_torch.ops import extend as ext
+
+    modes = {"extz": {}, "extd": {"gapo2": 24, "gape2": 1}}
+    rng = np.random.RandomState(31)
+    t = time.time()
+    genome = make_genome_fast(rng, 10_000_000)
+    q, ql, tg, tl = (torch.from_numpy(a).to(dev) for a in extension_pairs(
+        rng, genome, B, 500, 4000, 0.12, 0.2))
+    log("extension data: %d pairs, codes %s + %s int32 (%d bytes), made "
+        "in %.1f s" % (B, tuple(q.shape), tuple(tg.shape),
+                       4 * (q.numel() + tg.numel()), time.time() - t))
+
+    def run(m):
+        return ext.extz_batch(q, ql, tg, tl, W=W, zdrop=zdrop, **modes[m])
+
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    kern = {m: run(m) for m in modes}
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    out = {}
+    for m, gap in modes.items():
+        if not launches.get(m):
+            raise AssertionError("kernel %s was not launched by "
+                                 "extz_batch" % m)
+        t = time.time()
+        plain = ext.extz_batch_plain(q, ql, tg, tl, W=W, zdrop=zdrop, **gap)
+        torch.cuda.synchronize()
+        pms = (time.time() - t) * 1e3
+        err = 0
+        for key in ext.KEYS:
+            err = max(err, require_equal("%s %s" % (m, key), kern[m][key],
+                                         plain[key]))
+        n_drop = int(kern[m]["zdropped"].sum())
+        if not 0 < n_drop < B:
+            raise AssertionError("%s: %d of %d pairs Z-dropped" % (m, n_drop,
+                                                                   B))
+        ms = cuda_ms(lambda: run(m), 3)
+        mean_max = float(kern[m]["max"].double().mean())
+        log("B5 %s B=%d W=%d zdrop=%d: equal in all 8 outputs (%d "
+            "Z-dropped, mean max %.1f); kernel %.3f ms, plain %.3f ms"
+            % (m, B, W, zdrop, n_drop, mean_max, ms, pms))
+        out[m] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                      shape="B=%d L<=%d W=%d" % (B, q.shape[1], W))
+
+    # short pairs against the full-DP host reference (numpy loops)
+    sq, sql, st, stl = extension_pairs(rng, genome, 16, 150, 400, 0.12, 0.2)
+    t = time.time()
+    for m, gap in modes.items():
+        res = ext.extz_batch(*(torch.from_numpy(a).to(dev)
+                               for a in (sq, sql, st, stl)),
+                             W=W, zdrop=zdrop, **gap)
+        res = {key: v.cpu().numpy() for key, v in res.items()}
+        for b in range(len(sql)):
+            want = ext.extz_host(sq[b, :sql[b]], st[b, :stl[b]], w=W,
+                                 zdrop=zdrop, **gap)
+            keys = ["max", "max_q", "max_t", "mte", "mte_q"]
+            if want["mqe"] > ext.NEG_INF:
+                keys += ["mqe", "mqe_t"]
+            for key in keys:
+                if int(res[key][b]) != want[key]:
+                    raise AssertionError("%s pair %d: %s %d, host %d" % (
+                        m, b, key, int(res[key][b]), want[key]))
+    log("B5 extz / extd: 16 short pairs equal the host reference (%.1f s)"
+        % (time.time() - t))
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the HPC spike-in-control filter run
+
+N_CONTROL = 100         # control-derived queries of the filter run (2%)
+CONTROL = "longqc_tpu/refs/Sequel_control_reference.fasta"
+
+
+def hpc_filter_run(dev, workdir):
+    import numpy as np
+    import torch
+    from util_synth import make_genome_fast, sample_reads_fast
+    from longqc_tpu_torch import cli
+    from longqc_tpu_torch.config import FltOpt, IndexOpt, MapOpt, \
+        OverlapConfig, parse_num
+    from longqc_tpu_torch.engine import overlap_host as oh
+    from longqc_tpu_torch.io.fastx import iter_fastx
+    from longqc_tpu_torch.ops import _ext
+
+    t = time.time()
+    ctl_path = os.path.join(HERE, CONTROL)
+    control = [[n, s, q or ""] for n, s, q in iter_fastx(ctl_path)]
+    if len(control) != 1:
+        raise AssertionError("%s holds %d records" % (CONTROL, len(control)))
+    rng = np.random.RandomState(4242)
+    genome = make_genome_fast(rng, 10_000_000)
+    queries = sample_reads_fast(rng, genome, N_QUERIES - N_CONTROL,
+                                min_len=1000, max_len=8000, err=0.12,
+                                junk_frac=0.1)
+    # control reads run around the circular control: unrolled copies
+    ctl = sample_reads_fast(rng, control[0][1] * 3, N_CONTROL,
+                            min_len=1000, max_len=8000, err=0.12)
+    ctl_at = sorted(random.Random(11).sample(range(N_QUERIES), N_CONTROL))
+    for i, (at, r) in enumerate(zip(ctl_at, ctl)):
+        queries.insert(at, ["control%03d" % i] + r[1:])
+    qpath = os.path.join(workdir, "hpc_queries.fq")
+    write_fastq(qpath, queries)
+    log("HPC filter data: control %d bp, %d queries (%d bp) of which %d "
+        "from the control, made in %.1f s" % (
+            len(control[0][1]), len(queries),
+            sum(len(r[1]) for r in queries), N_CONTROL, time.time() - t))
+
+    stats_path = os.path.join(workdir, "hpc_stats.json")
+    argv = ["mmcov", "-H", "-k", "15", "-w", "10", "-c", "1", "-l", "0",
+            "--filter", "--device", str(dev), "--stats", stats_path,
+            ctl_path, qpath]
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    buf = io.StringIO()
+    t = time.time()
+    with redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = dict(_ext.LAUNCHES)
+    if rc != 0:
+        raise AssertionError("mmcov -H returned %d" % rc)
+    with open(stats_path) as f:
+        stats = json.load(f)
+    rows = buf.getvalue().rstrip("\n").split("\n")
+    log("mmcov %s" % " ".join(argv[:-2] + [CONTROL, "hpc_queries.fq"]))
+    log("mmcov -H wall %.2f s; phase_s %s" % (
+        wall, json.dumps({k: round(v, 3)
+                          for k, v in stats["phase_s"].items()})))
+    log("step calls %d, retry steps %d, flag counts %s, host-fixed rows "
+        "%d, host-only parts %d; kernel launches %s" % (
+            stats["device_calls"], stats["retry_steps"],
+            stats["flag_counts"], stats["host_fixed_rows"],
+            stats["host_only_parts"], launches))
+    if len(rows) != len(queries):
+        raise AssertionError("mmcov -H printed %d rows for %d queries"
+                             % (len(rows), len(queries)))
+    for name in HPC_KERNELS:
+        if not launches.get(name):
+            raise AssertionError("kernel %s was not launched by the "
+                                 "HPC filter run" % name)
+    if stats["host_fixed_rows"] > 0.05 * len(queries):
+        raise AssertionError("host-fixed rows %d exceed 5%% of %d queries"
+                             % (stats["host_fixed_rows"], len(queries)))
+    marked = [i for i, r in enumerate(rows) if r.split("\t")[3] != "0"]
+    n_ctl = len(set(marked) & set(ctl_at))
+    log("the filter marks %d queries: %d of the %d control-derived, %d "
+        "others" % (len(marked), n_ctl, N_CONTROL, len(marked) - n_ctl))
+    if n_ctl == 0:
+        raise AssertionError("the filter marks no control-derived query")
+
+    # every control-derived query and 32 random others against the
+    # port's HPC host spec
+    others = sorted(set(range(len(queries))) - set(ctl_at))
+    pick = sorted(ctl_at + random.Random(7).sample(others, 32))
+    cfg = OverlapConfig(
+        index=IndexOpt(k=15, w=10, is_hpc=True, batch_size=parse_num("4G")),
+        map=MapOpt(min_score_med=80, min_score_good=160,
+                   min_chain_score=40),
+        flt=FltOpt(min_ovlp=0, min_coverage=1), filter_mode=True)
+    t = time.time()
+    want = oh.overlap_run(iter(control), [queries[i] for i in pick], cfg,
+                          device=dev)
+    bad = [i for i, r in zip(pick, want) if rows[i] != r]
+    if bad:
+        raise AssertionError("%d of %d sampled HPC rows differ from the "
+                             "host spec (first: query %d)"
+                             % (len(bad), len(pick), bad[0]))
+    log("%d sampled HPC rows (%d control-derived) equal the host spec "
+        "(host spec %.1f s)" % (len(pick), N_CONTROL, time.time() - t))
     return launches
 
 
@@ -416,10 +676,20 @@ def main():
     # --- phase 4: small end to end
     small_end_to_end(dev)
 
-    # --- phase 5: realistic mmcov run
+    # --- phase 5: realistic mmcov run; phase 6: B5; phase 7: HPC filter
     workdir = tempfile.mkdtemp(prefix="longqc_smoke_")
     try:
+        t = time.time()
         launches = realistic_mmcov(dev, workdir)
+        log("phase 5 %.1f s" % (time.time() - t))
+        t = time.time()
+        ext_res, ext_launches = check_extend(dev)
+        res.update(ext_res)
+        launches.update(ext_launches)
+        log("phase 6 %.1f s" % (time.time() - t))
+        t = time.time()
+        hpc_launches = hpc_filter_run(dev, workdir)
+        log("phase 7 %.1f s" % (time.time() - t))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -427,10 +697,13 @@ def main():
     kernels = []
     for name, (src, rep) in SOURCES.items():
         r = res[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "shape": r["shape"]})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": rep, "launches": launches[name],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "shape": r["shape"]}
+        if name in HPC_KERNELS:
+            entry["launches_hpc_filter"] = hpc_launches[name]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

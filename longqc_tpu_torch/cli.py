@@ -2,8 +2,10 @@
 
 Ported so far: `mmcov`, the overlap engine's debug surface (the
 minimap2-coverage binary CLI, minimap2-coverage.c:37-197), on its
-default path. `mmcov -H` (HPC), `-z` and `-d`, and the `sampleqc`,
-`runqc` and `help` subcommands of the JAX package are not ported yet.
+default path and with -H (HPC sketch, k <= 15: the spike-in-control
+filter run). `mmcov -z` and `-d`, wide hashes (2k > 30), and the
+`sampleqc`, `runqc` and `help` subcommands of the JAX package are not
+ported yet.
 """
 
 import argparse
@@ -22,15 +24,13 @@ def command_mmcov(args):
     from longqc_tpu_torch.engine.overlap import overlap_run_device
     from longqc_tpu_torch.io.fastx import iter_fastx
 
-    if args.hpc:
-        raise NotImplementedError("mmcov -H (HPC sketch) is not ported "
-                                  "yet (ROADMAP: port queue item 1)")
     if args.z or args.db:
         raise SystemExit("mmcov -z / -d: not yet ported")
     if args.query is None:
         raise SystemExit("mmcov: no query given")
     cfg = OverlapConfig(
-        index=IndexOpt(k=args.k, w=args.w, batch_size=parse_num(args.inds)),
+        index=IndexOpt(k=args.k, w=args.w, is_hpc=bool(args.hpc),
+                       batch_size=parse_num(args.inds)),
         map=MapOpt(min_score_med=args.p, min_score_good=args.q,
                    min_chain_score=args.m),
         flt=FltOpt(min_ovlp=args.l, min_coverage=args.c),

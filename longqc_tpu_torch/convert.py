@@ -2,8 +2,9 @@
 
 The JAX package's device index (engine/device_index.build_device_index:
 ih, irid, ips, mid_occ) and a JAX query group's staged arrays and
-accumulators (engine/device_overlap._Group) become the port's tensors on
-a given device, so one input can be fed to both packages' step programs
+accumulators (engine/device_overlap._Group, with the HPC group's
+per-slot spans and f32 mean-span state) become the port's tensors on a
+given device, so one input can be fed to both packages' step programs
 and their intermediates compared. Everything arrives as numpy arrays
 (np.asarray of the JAX arrays); this module imports no jax.
 """
@@ -13,6 +14,7 @@ import torch
 
 GROUP_ARRAYS = ("qh", "qps", "qcnt", "n_slots", "n_exp", "qlen", "qvalid")
 STATE_ARRAYS = ("lam", "lam2", "avgk_set", "m_cnts")
+HPC_ARRAYS = ("qspan", "avgk_val")
 
 
 def _t(a, dtype, device):
@@ -37,9 +39,13 @@ def group_from_arrays(arrays, device="cpu"):
     """A JAX query group's staged arrays (GROUP_ARRAYS: qh, qps, qcnt,
     n_slots, n_exp, qlen, qvalid) and accumulators (STATE_ARRAYS: lam,
     lam2 int64; avgk_set, m_cnts int32) as port tensors; `arrays` maps
-    those names to numpy arrays."""
+    those names to numpy arrays. An HPC group also carries HPC_ARRAYS
+    (qspan int32, avgk_val float32)."""
     out = {n: _t(arrays[n], np.int32, device) for n in GROUP_ARRAYS}
     for n in STATE_ARRAYS:
         dt = np.int64 if n in ("lam", "lam2") else np.int32
         out[n] = _t(arrays[n], dt, device)
+    if "qspan" in arrays:
+        out["qspan"] = _t(arrays["qspan"], np.int32, device)
+        out["avgk_val"] = _t(arrays["avgk_val"], np.float32, device)
     return out

@@ -3,8 +3,9 @@
 // Each binding makes the device of its tensors current (CUDAGuard) and
 // launches on that device's current stream, so a tensor on any card is
 // launched where it lives. The Python wrappers (ops/sketch_cuda.py,
-// ops/chain_cuda.py, ops/ringprop.py) check shapes, dtypes, devices and
-// contiguity, allocate the outputs and count the launches.
+// ops/chain_cuda.py, ops/ringprop.py, ops/extend_cuda.py) check shapes,
+// dtypes, devices and contiguity, allocate the outputs and count the
+// launches.
 
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAGuard.h>
@@ -42,6 +43,8 @@ void chain_fill(T axh, T axl, T aq, T asp, T nb, T pen, T carry_in,
                 T cflag_in, T f, T p, T v, T carry_out, T cflag_out,
                 int64_t J, int64_t bw, int64_t max_dist, int64_t max_skip,
                 int64_t i0) {
+  // one penalty table for every row, or one per row
+  const int pen_stride = pen.size(0) == 1 ? 0 : (int)pen.size(1);
   const c10::cuda::CUDAGuard guard(axh.device());
   check_launch(
       lq_chain_fill(axh.data_ptr(), axl.data_ptr(), aq.data_ptr(),
@@ -49,8 +52,8 @@ void chain_fill(T axh, T axl, T aq, T asp, T nb, T pen, T carry_in,
                     carry_in.data_ptr(), cflag_in.data_ptr(), f.data_ptr(),
                     p.data_ptr(), v.data_ptr(), carry_out.data_ptr(),
                     cflag_out.data_ptr(), (int)axh.size(0), (int)axh.size(1),
-                    (int)J, (int)bw, (int)max_dist, (int)max_skip, (int)i0,
-                    stream_of(axh)),
+                    (int)J, (int)bw, pen_stride, (int)max_dist,
+                    (int)max_skip, (int)i0, stream_of(axh)),
       "chain");
 }
 
@@ -70,6 +73,19 @@ void minrank_pass(T p, T own, T r, int64_t J) {
                "minrank");
 }
 
+void extend_fill(T q, T ql, T t, T tl, T out, int64_t W, int64_t match,
+                 int64_t mismatch, int64_t gapo, int64_t gape, int64_t gapo2,
+                 int64_t gape2, int64_t zdrop, bool dual) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  check_launch(lq_extend_fill(q.data_ptr(), ql.data_ptr(), t.data_ptr(),
+                              tl.data_ptr(), out.data_ptr(), (int)q.size(0),
+                              (int)q.size(1), (int)t.size(1), (int)W,
+                              (int)match, (int)mismatch, (int)gapo,
+                              (int)gape, (int)gapo2, (int)gape2, (int)zdrop,
+                              dual ? 1 : 0, stream_of(q)),
+               dual ? "extd" : "extz");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -77,4 +93,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("chain_fill", &chain_fill, "B2 chain-DP score fill");
   m.def("peak_pass", &peak_pass, "B3 peak pass");
   m.def("minrank_pass", &minrank_pass, "B4 min-rank pass");
+  m.def("extend_fill", &extend_fill, "B5 banded extension (extz / extd)");
 }

@@ -5,7 +5,8 @@
 // mm_chain_dp's fill (chain.c:41-80): per anchor i the last J anchors
 // are scored as predecessors (max_dist / bw gating, gap cost
 // (int)(dd*.01*avg_qspan) + (ilog2(dd)>>1) read from the f64-exact
-// host table gap_penalty_table), the strict running max in age order
+// host table gap_penalty_table, one table per row or one for all), the
+// strict running max in age order
 // picks the parent, and the max_skip cut runs the same two bounding
 // passes (marks from every admissible entry, then marks from entries
 // before the first-pass cut). A row is flagged when the passes
@@ -21,7 +22,7 @@
 // carried prefix. Per-age masks are ballots, so the mark words of the
 // max_skip passes are OR-reductions of one word per lane. The ring
 // lives in shared memory as a circular buffer (age a at slot
-// (head + a - 1) mod J, so a push is one write); the (bw+1)-entry
+// (head + a - 1) mod J, so a push is one write); the row's (bw+1)-entry
 // penalty table sits beside it. Anchors are read 32 at a time, one per
 // lane, and broadcast by shuffle. Layout is (Q, A) row-major; carry is
 // (7, Q, J) in age order plus a (Q,) flag, the same values as the TPU
@@ -29,8 +30,8 @@
 //
 // Bound: the per-anchor dependency chain (shared-memory loads, three to
 // five warp scans of five shuffles), with Q warps in flight: latency,
-// not bytes or operations. One warp per block spreads the rows over
-// the SMs.
+// not bytes or operations. One warp per block (one row per block, which
+// also gives each row its own table) spreads the rows over the SMs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,13 +127,17 @@ __global__ void lq_chain_fill_kernel(
     const int32_t* __restrict__ cflag_in, int32_t* __restrict__ of,
     int32_t* __restrict__ op, int32_t* __restrict__ ov,
     int32_t* __restrict__ carry_out, int32_t* __restrict__ cflag_out, int Q,
-    int A, int bw, int max_dist, int max_skip, int i0) {
+    int A, int bw, int pen_stride, int max_dist, int max_skip, int i0) {
   constexpr int NW = J / 32;
+  // one warp, so one query row, per block
+  const int row = blockIdx.x;
+  if (row >= Q) return;
   extern __shared__ int32_t smem[];
   int32_t* pen = smem;
-  for (int t = threadIdx.x; t <= bw; t += blockDim.x) pen[t] = pen_g[t];
-  const int lane = threadIdx.x & 31;
-  int32_t* ring = smem + ((bw + 4) & ~3) + (threadIdx.x >> 5) * 7 * J;
+  const int32_t* pen_row = pen_g + (size_t)row * pen_stride;
+  const int lane = threadIdx.x;
+  for (int t = lane; t <= bw; t += 32) pen[t] = pen_row[t];
+  int32_t* ring = smem + ((bw + 4) & ~3);
   int32_t* rxh = ring;
   int32_t* rxl = ring + J;
   int32_t* rq = ring + 2 * J;
@@ -140,9 +145,7 @@ __global__ void lq_chain_fill_kernel(
   int32_t* rf = ring + 4 * J;
   int32_t* rv = ring + 5 * J;
   int32_t* rp = ring + 6 * J;
-  __syncthreads();
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= Q) return;
+  __syncwarp();
 
   const size_t QJ = (size_t)Q * J;
   const size_t rb = (size_t)row * J;
@@ -271,10 +274,10 @@ __global__ void lq_chain_fill_kernel(
   if (lane == 0) cflag_out[row] = flag;
 }
 
-// shared memory of one block: the penalty table (padded to 4 words)
-// plus one 7 x J ring per warp
-static size_t lq_chain_smem(int J, int warps, int bw) {
-  return ((size_t)((bw + 4) & ~3) + (size_t)warps * 7 * J) * sizeof(int32_t);
+// shared memory of one block: the row's penalty table (padded to 4
+// words) plus its 7 x J ring
+static size_t lq_chain_smem(int J, int bw) {
+  return ((size_t)((bw + 4) & ~3) + (size_t)7 * J) * sizeof(int32_t);
 }
 
 template <int J>
@@ -283,21 +286,19 @@ static int lq_chain_launch(const void* axh, const void* axl, const void* aq,
                            const void* carry_in, const void* cflag_in,
                            void* of, void* op, void* ov, void* carry_out,
                            void* cflag_out, int Q, int A, int bw,
-                           int max_dist, int max_skip, int i0,
-                           cudaStream_t st) {
-  const int warps = 1;  // one row per block: rows spread over all SMs
-  const int blocks = (Q + warps - 1) / warps;
-  const size_t smem = lq_chain_smem(J, warps, bw);
+                           int pen_stride, int max_dist, int max_skip,
+                           int i0, cudaStream_t st) {
+  const size_t smem = lq_chain_smem(J, bw);
   cudaError_t e = cudaFuncSetAttribute(
       lq_chain_fill_kernel<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  lq_chain_fill_kernel<J><<<blocks, 32 * warps, smem, st>>>(
+  lq_chain_fill_kernel<J><<<Q, 32, smem, st>>>(
       (const int32_t*)axh, (const int32_t*)axl, (const int32_t*)aq,
       (const int32_t*)asp, (const int32_t*)nb, (const int32_t*)pen,
       (const int32_t*)carry_in, (const int32_t*)cflag_in, (int32_t*)of,
       (int32_t*)op, (int32_t*)ov, (int32_t*)carry_out, (int32_t*)cflag_out,
-      Q, A, bw, max_dist, max_skip, i0);
+      Q, A, bw, pen_stride, max_dist, max_skip, i0);
   return (int)cudaGetLastError();
 }
 
@@ -306,23 +307,26 @@ extern "C" int lq_chain_fill(const void* axh, const void* axl, const void* aq,
                              const void* carry_in, const void* cflag_in,
                              void* of, void* op, void* ov, void* carry_out,
                              void* cflag_out, int Q, int A, int J, int bw,
-                             int max_dist, int max_skip, int i0,
-                             void* stream) {
+                             int pen_stride, int max_dist, int max_skip,
+                             int i0, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (Q <= 0) return 0;
   switch (J) {
     case 64:
       return lq_chain_launch<64>(axh, axl, aq, asp, nb, pen, carry_in,
                                  cflag_in, of, op, ov, carry_out, cflag_out, Q,
-                                 A, bw, max_dist, max_skip, i0, st);
+                                 A, bw, pen_stride, max_dist, max_skip, i0,
+                                 st);
     case 128:
       return lq_chain_launch<128>(axh, axl, aq, asp, nb, pen, carry_in,
                                   cflag_in, of, op, ov, carry_out, cflag_out,
-                                  Q, A, bw, max_dist, max_skip, i0, st);
+                                  Q, A, bw, pen_stride, max_dist, max_skip,
+                                  i0, st);
     case 256:
       return lq_chain_launch<256>(axh, axl, aq, asp, nb, pen, carry_in,
                                   cflag_in, of, op, ov, carry_out, cflag_out,
-                                  Q, A, bw, max_dist, max_skip, i0, st);
+                                  Q, A, bw, pen_stride, max_dist, max_skip,
+                                  i0, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,8 +1,8 @@
 // Plain C launch interface of the hand-written kernels (sketch.cu,
-// chain.cu, ringprop.cu), bound to PyTorch by bind.cpp. Every pointer is
-// a contiguous int32 device buffer of the layout its .cu file documents;
-// each function launches on `stream` and returns the cudaError_t of its
-// launch (0 on success).
+// chain.cu, ringprop.cu, extend.cu), bound to PyTorch by bind.cpp. Every
+// pointer is a contiguous int32 device buffer of the layout its .cu file
+// documents; each function launches on `stream` and returns the
+// cudaError_t of its launch (0 on success).
 #pragma once
 
 #ifdef __cplusplus
@@ -18,14 +18,19 @@ int lq_chain_fill(const void* axh, const void* axl, const void* aq,
                   const void* asp, const void* nb, const void* pen,
                   const void* carry_in, const void* cflag_in, void* of,
                   void* op, void* ov, void* carry_out, void* cflag_out, int Q,
-                  int A, int J, int bw, int max_dist, int max_skip, int i0,
-                  void* stream);
+                  int A, int J, int bw, int pen_stride, int max_dist,
+                  int max_skip, int i0, void* stream);
 
 int lq_peak_pass(const void* f, const void* v, const void* p, void* peak,
                  int Q, int A, int J, void* stream);
 
 int lq_minrank_pass(const void* p, const void* own, void* r, int Q, int A,
                     int J, void* stream);
+
+int lq_extend_fill(const void* q, const void* ql, const void* t,
+                   const void* tl, void* out, int B, int Lq, int Lt, int W,
+                   int match, int mismatch, int gapo, int gape, int gapo2,
+                   int gape2, int zdrop, int dual, void* stream);
 
 #ifdef __cplusplus
 }

@@ -221,19 +221,17 @@ def to_device_words(a, device):
 def tile_flat(codes2, nmask, startmask, endmask, starts, gids, *, W, k, w):
     """Per-tile chunk: B1 sketch -> duplicate expansion -> single-key
     sort. Returns (ih, irid, ips) sorted by hash with INF32 on empty
-    slots (R*W each), n_exp_total, row_overflow (R,) bool (a row's
-    expanded emissions exceeded its W columns — impossible by the one
-    emission per window bound, checked anyway), exp_overflow (False)."""
+    slots (R*W each) and n_exp_total. A row's expanded emissions never
+    exceed its W columns (one emission per window), so no row needs
+    re-running."""
     res = sketch_tiles(codes2, nmask, startmask, endmask, starts, gids,
                        W=W, k=k, w=w)
     c2 = res["emit"]
     h2 = torch.where(c2 > 0, res["hash"], INF32)
     p2 = (res["pos"] << 1) | res["strand"]
-    eh, er, ep, n_exp_total, n_exp_r = _expand_rows(h2, res["rid"], p2,
-                                                    c2, INF32)
+    eh, er, ep, n_exp_total = _expand_rows(h2, res["rid"], p2, c2, INF32)
     ih, irid, ips = sort_index(eh, er, ep)
-    return (ih, irid, ips, n_exp_total,
-            (res["flags"] != 0) | (n_exp_r > W), False)
+    return ih, irid, ips, n_exp_total
 
 
 def sort_index(eh, er, ep):
@@ -248,8 +246,8 @@ def _expand_rows(h2, r2, p2, c2, INFH):
     row, wstart = exclusive row cumsum; the rest of the row holds INFH
     (the caller's sort moves it to the tail).
 
-    Returns flattened (eh, er, ep), n_exp_total (sum of per-row
-    expanded counts) and n_exp_r (R,) for overflow flags."""
+    Returns flattened (eh, er, ep) and n_exp_total (sum of per-row
+    expanded counts)."""
     R, C = h2.shape
     ccum = torch.cumsum(c2, dim=1)
     n_exp_r = ccum[:, -1]
@@ -266,13 +264,12 @@ def _expand_rows(h2, r2, p2, c2, INFH):
     eh = torch.where(on, torch.gather(h2, 1, src), INFH).reshape(-1)
     er = torch.where(on, torch.gather(r2, 1, src), 0).reshape(-1)
     ep = torch.where(on, torch.gather(p2, 1, src), 0).reshape(-1)
-    return eh, er, ep, n_exp_r.sum(), n_exp_r
+    return eh, er, ep, n_exp_r.sum()
 
 
 class IndexOverflowError(RuntimeError):
-    """The part exceeds the largest index width, or a tile row
-    overflowed its expansion even when re-run alone. Callers fall back
-    to the exact host index for the part."""
+    """The part exceeds the largest index width. Callers fall back to
+    the exact host index for the part."""
 
 
 def _run_tile(t, k, w, device):
@@ -345,34 +342,6 @@ def _mid_occ(ih, mid_occ_fixed, mid_occ_frac):
     return _mid_occ_device(ih, frac=mid_occ_frac)
 
 
-def _redo_tiles(part, tiles, ovf, k, w, device):
-    """Rebuild the chunks of tiles with an overflowing row: clean rows
-    repack as before, the reads of overflowing rows re-run one read per
-    row. A single-read row that still overflows raises."""
-    sep = max(w - 1, 1)
-    chunks = []
-    for t, row_ov in zip(tiles, ovf):
-        if not row_ov[:len(t.used)].any():
-            continue
-        keep, redo = [], []
-        for r in range(t.R):
-            gg = [g for g in t.gids[r] if g >= 0]
-            (redo if row_ov[r] else keep).extend(gg)
-        groups = [keep] + [[g] for g in redo]
-        for grp in groups:
-            if not grp:
-                continue
-            b = _TileBuilder(t.R if len(grp) > 1 else 1, t.W, sep)
-            for g in grp:
-                b.add(g, part[g][1])
-            for t2 in b.tiles():
-                r2 = _run_tile(t2, k, w, device)
-                if r2[4].any():
-                    raise IndexOverflowError("tile row overflow")
-                chunks.append(list(r2[:3]))
-    return chunks
-
-
 CROP_NUM, CROP_DEN = 3, 8
 
 
@@ -402,18 +371,13 @@ def build_device_index(part, k, w, *, device, ladder=TILE_LADDER,
     tiles, jumbo = pack_part_tiles(part, w, ladder=ladder)
     tiles = tiles + jumbo
     results = [_run_tile(t, k, w, device) for t in tiles]
-    # one sync per part: overflow flags + real entry counts
-    ovf = [r[4].cpu().numpy() for r in results]
+    # one sync per part: the real entry counts
     n_exp = torch.stack([r[3] for r in results]).cpu().tolist() \
         if results else []
-    redone = _redo_tiles(part, tiles, ovf, k, w, device)
     chunks = []
-    for t, r, ov, n in zip(tiles, results, ovf, n_exp):
-        if ov[:len(t.used)].any():
-            continue   # covered by redone
+    for r, n in zip(results, n_exp):
         c, crop = _crop_chunk(list(r[:3]))
         chunks.append(list(r[:3]) if n > crop else c)
-    chunks += redone
     if not chunks:
         raise IndexOverflowError("empty part")
     final, n_idx = _merge_chunks(chunks, n_idx_sizes)

@@ -1,4 +1,4 @@
-"""Device-resident overlap-coverage engine (plain mode, one device).
+"""Device-resident overlap-coverage engine (one device).
 
 Torch port of longqc_tpu/engine/device_overlap.py. Per index part:
 
@@ -14,6 +14,15 @@ Torch port of longqc_tpu/engine/device_overlap.py. Per index part:
     (lq_cnt_match + filter_redundant_coords semantics), all on the
     device; the host pulls per-row flags and the compressed interval
     events.
+
+HPC configurations (-H: the spike-in-control filter run) sketch the
+homopolymer-compressed queries with the tensor sketch (ops/sketch_hpc;
+per-slot spans ride beside the hashes), index the small control
+targets with the host spec's index, and split the step in two: the
+anchors and their span sums first, then, with one f64-exact gap-penalty
+table per row fitted on the host from the row's mean anchor span
+(avg_qspan is data-dependent under HPC, sketch.c:90-104), the chain
+fill and the accounting with per-anchor spans.
 
 Exactness contract: rows are bit-identical to engine/overlap_host.
 Whatever the device math cannot reproduce exactly raises a per-(row,
@@ -49,9 +58,13 @@ from longqc_tpu_torch.config import OverlapConfig
 from longqc_tpu_torch.engine import device_index as di
 from longqc_tpu_torch.engine import overlap_host as oh
 from longqc_tpu_torch.ops.chain import gap_penalty_table, make_carry
+from longqc_tpu_torch.ops._ext import require_device
 from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill
 from longqc_tpu_torch.ops.ringprop import INF32, minrank_pass, peak_pass
+from longqc_tpu_torch.ops.sketch import sketch_batch
 from longqc_tpu_torch.ops.sketch_cuda import sketch_tiles
+from longqc_tpu_torch.ops.sketch_hpc import (hpc_compress, pack_hpc,
+                                             sketch_reads_hpc)
 
 logger = getLogger(__name__)
 
@@ -217,12 +230,14 @@ def _geom_ok(a, total, min_ratio):
 
 def _collect_anchors(irid, ips, rid_rank, mid_occ, left_slot, occ_slot,
                      qps, qcnt, n_slots, qlen, qrank, qbisect,
-                     st: StepStatic):
+                     st: StepStatic, qspan=None):
     """Seed lookup, kept-minimizer accounting and sorted anchor
     expansion (lqmap.c:140-205). Slot j owns qcnt*occ anchors; the
     t-th reads index occurrence t mod occ (duplicate emissions' anchors
-    are identical). Returns (key1, key2, yq, js_s, n_anch, n_q,
-    n_kept)."""
+    are identical). qspan: per-slot query minimizer spans (HPC; None =
+    plain mode, span == k). Returns (key1, key2, yq, js_s, span_s,
+    n_anch, n_q, n_kept, kept_ssum, anch_ssum); span_s (per-anchor
+    spans in sorted order) and the span sums are None in plain mode."""
     Q = left_slot.shape[0]
     M, A = st.M, st.A
     slot_on = _ar(M, qps)[None, :] < n_slots[:, None]
@@ -231,6 +246,9 @@ def _collect_anchors(irid, ips, rid_rank, mid_occ, left_slot, occ_slot,
     kcum = torch.cumsum(kc, dim=1)
     js_slot = kcum - kc            # kept rank of the slot's 1st entry
     n_kept = kcum[:, -1].to(_I32)
+    kept_ssum = None
+    if qspan is not None:
+        kept_ssum = torch.where(kept, qcnt * qspan, 0).sum(dim=1).to(_I32)
 
     w = torch.where(kept, qcnt * occ_slot, 0)
     ce = torch.cumsum(w.to(_I64), dim=1).clamp(max=1 << 30)
@@ -272,7 +290,11 @@ def _collect_anchors(irid, ips, rid_rank, mid_occ, left_slot, occ_slot,
     key1 = torch.where(live, (rev << 24) | rid_a, INF32)
     key2 = torch.where(live, rpos, INF32)
     js_a = torch.where(live, js_a0, 0)
-    yq = torch.where(fwd, qpos_a, qlen[:, None] - (qpos_a + 1 - st.k) - 1)
+    if qspan is None:
+        span_a = st.k
+    else:
+        span_a = torch.gather(qspan, 1, e_clip)
+    yq = torch.where(fwd, qpos_a, qlen[:, None] - (qpos_a + 1 - span_a) - 1)
     yq = torch.where(live, yq, 0)
     n_anch = live.sum(dim=1).to(_I32)
 
@@ -284,15 +306,25 @@ def _collect_anchors(irid, ips, rid_rank, mid_occ, left_slot, occ_slot,
     key2 = torch.gather(key2, 1, order).to(_I32)
     yq = torch.gather(yq, 1, order).to(_I32)
     js_s = torch.gather(js_a, 1, order).to(_I32)
-    return key1, key2, yq, js_s, n_anch, n_q, n_kept
+    span_s = anch_ssum = None
+    if qspan is not None:
+        span_a = torch.where(live, span_a, 0)
+        anch_ssum = span_a.sum(dim=1).to(_I32)
+        span_s = torch.gather(span_a, 1, order).to(_I32)
+    return (key1, key2, yq, js_s, span_s, n_anch, n_q, n_kept, kept_ssum,
+            anch_ssum)
 
 
-def _run_dp(key1, key2, yq, n_anch, pen_tab, st: StepStatic):
-    """B2 chain fill + B3 peak pass over the sorted anchors. Ring depth
-    st.jring: 64 in steady state, 128 / 256 on the F_KERNEL retries."""
+def _run_dp(key1, key2, yq, span_s, n_anch, pen_tab, st: StepStatic):
+    """B2 chain fill + B3 peak pass over the sorted anchors. span_s:
+    per-anchor spans (None = plain mode, span == k); pen_tab: (1, bw+1)
+    or one gap-penalty table per row (Q, bw+1). Ring depth st.jring: 64
+    in steady state, 128 / 256 on the F_KERNEL retries."""
     Q, A = key1.shape
     ring, cflag = make_carry(Q, st.jring, device=key1.device)
-    span = torch.full((Q, A), st.k, dtype=_I32, device=key1.device)
+    span = span_s
+    if span is None:
+        span = torch.full((Q, A), st.k, dtype=_I32, device=key1.device)
     f, p, v, kflag, _carry = chain_dp_fill(
         key1, key2, yq, span, n_anch, pen_tab, (ring, cflag), 0,
         J=st.jring, max_dist=st.max_gap, bw=st.bw, max_skip=st.max_skip)
@@ -300,12 +332,13 @@ def _run_dp(key1, key2, yq, n_anch, pen_tab, st: StepStatic):
     return f, p, v, peak, kflag
 
 
-def _post_dp(key1, key2, yq, js_s, f, p, v, peak, kflag, n_anch, n_q,
-             n_kept, seq_lens, qlen, qvalid, n_exp, lam, lam2, avgk_set,
-             m_cnts, st: StepStatic):
+def _post_dp(key1, key2, yq, js_s, span_s, f, p, v, peak, kflag, n_anch,
+             n_q, n_kept, seq_lens, qlen, qvalid, n_exp, lam, lam2,
+             avgk_set, m_cnts, st: StepStatic):
     """Chain selection, reg geometry, coverage accounting and interval
     compression (chain extraction per ops/chainsel; esterr.c:72-140;
-    lqmap.c:25-100)."""
+    lqmap.c:25-100). span_s: per-anchor spans in sorted order (None =
+    plain mode, span == k)."""
     Q, A = key1.shape
     M2 = st.M2
     dev = key1.device
@@ -372,7 +405,8 @@ def _post_dp(key1, key2, yq, js_s, f, p, v, peak, kflag, n_anch, n_q,
     yq0 = gat(yq, first_idx)
     re = gat(key2, pk_idx) + 1
     yql = gat(yq, pk_idx)
-    span_f = st.k
+    # span of the chain's root-most anchor (q_span in chain_to_reg)
+    span_f = st.k if span_s is None else gat(span_s, first_idx)
     rs = (rs_last + 1 - span_f).clamp(min=0)
     qlen_b = qlen[:, None]
     qs = torch.where(c_rev == 0, yq0 + 1 - span_f, qlen_b - (yql + 1))
@@ -496,17 +530,56 @@ def _step_impl(irid, ips, seq_lens, rid_rank, mid_occ, left_slot,
                occ_slot, qps, qcnt, n_slots, n_exp, qlen, qrank, qbisect,
                qvalid, lam, lam2, avgk_set, m_cnts, pen_tab,
                st: StepStatic):
-    """One (part x query-group) update. Returns the committed state
-    (lam, lam2, avgk_set, m_cnts), the packed [flags | ev_n | compact
-    events] pull target and the uncompacted (Q, EOUT) events."""
-    key1, key2, yq, js_s, n_anch, n_q, n_kept = _collect_anchors(
-        irid, ips, rid_rank, mid_occ, left_slot, occ_slot, qps, qcnt,
-        n_slots, qlen, qrank, qbisect, st)
-    f, p, v, peak, kflag = _run_dp(key1, key2, yq, n_anch, pen_tab, st)
-    out = _post_dp(key1, key2, yq, js_s, f, p, v, peak, kflag, n_anch,
-                   n_q, n_kept, seq_lens, qlen, qvalid, n_exp, lam, lam2,
-                   avgk_set, m_cnts, st)
+    """One (part x query-group) update (plain sketch, constant span).
+    Returns the committed state (lam, lam2, avgk_set, m_cnts), the
+    packed [flags | ev_n | compact events] pull target and the
+    uncompacted (Q, EOUT) events."""
+    key1, key2, yq, js_s, _sp, n_anch, n_q, n_kept, _ks, _as = \
+        _collect_anchors(irid, ips, rid_rank, mid_occ, left_slot,
+                         occ_slot, qps, qcnt, n_slots, qlen, qrank, qbisect,
+                         st)
+    f, p, v, peak, kflag = _run_dp(key1, key2, yq, None, n_anch, pen_tab,
+                                   st)
+    out = _post_dp(key1, key2, yq, js_s, None, f, p, v, peak, kflag,
+                   n_anch, n_q, n_kept, seq_lens, qlen, qvalid, n_exp, lam,
+                   lam2, avgk_set, m_cnts, st)
     return out[:6]
+
+
+def _step_hpc_a(irid, ips, rid_rank, mid_occ, left_slot, occ_slot, qps,
+                qcnt, n_slots, qspan, qlen, qrank, qbisect, st: StepStatic):
+    """HPC step, phase A: anchors with their spans, plus the (Q, 5)
+    per-row statistics [n_anch, anchor span sum, n_kept, kept span sum,
+    n_q] the host fits each row's gap-penalty table and kept mean span
+    from."""
+    out = _collect_anchors(irid, ips, rid_rank, mid_occ, left_slot,
+                           occ_slot, qps, qcnt, n_slots, qlen, qrank,
+                           qbisect, st, qspan=qspan)
+    (key1, key2, yq, js_s, span_s, n_anch, n_q, n_kept, kept_ssum,
+     anch_ssum) = out
+    stats = torch.stack([n_anch, anch_ssum, n_kept, kept_ssum, n_q], dim=1)
+    return out[:8], stats
+
+
+def _step_hpc_b(anchors, seq_lens, qlen, qvalid, n_exp, lam, lam2,
+                avgk_set, avgk_val, m_cnts, pen_tab, kept_avg,
+                st: StepStatic):
+    """HPC step, phase B: chain fill with the per-row tables (pen_tab
+    (Q, bw+1)) and per-anchor spans, then the accounting. avgk_val (f32
+    state) takes the row's kept-minimizer mean span (kept_avg, computed
+    on the host as the host spec's state.avg_k) the first time the row
+    is processed. Returns (lam, lam2, avgk_set, avgk_val, m_cnts,
+    packed pull, events)."""
+    key1, key2, yq, js_s, span_s, n_anch, n_q, n_kept = anchors
+    f, p, v, peak, kflag = _run_dp(key1, key2, yq, span_s, n_anch, pen_tab,
+                                   st)
+    (lam_n, lam2_n, avgk_n, mc, packed_small, events, proc,
+     new_flags) = _post_dp(key1, key2, yq, js_s, span_s, f, p, v, peak,
+                           kflag, n_anch, n_q, n_kept, seq_lens, qlen,
+                           qvalid, n_exp, lam, lam2, avgk_set, m_cnts, st)
+    set_now = proc & (n_kept > 0) & (avgk_set == 0) & (new_flags == 0)
+    avgk_val_n = torch.where(set_now, kept_avg, avgk_val)
+    return lam_n, lam2_n, avgk_n, avgk_val_n, mc, packed_small, events
 
 
 def _finalize_group(lam, lam2, m_cnts, n_exp):
@@ -558,6 +631,18 @@ def _compact_sketch(emit, hsh, pos, strand, *, M):
     return qh, take(pos), take(strand), take(emit), n
 
 
+def _compact_sketch_hpc(emit, hsh, pos, strand, *, M):
+    """_compact_sketch of the HPC sketch, whose keys pack hash << 8 |
+    span: -> (hash, pos, strand, span, emit, n) int32 slots (k <= 15
+    keeps the hash in int32)."""
+    pk, qpos, qstrand, qcnt, n = _compact_sketch(emit, hsh, pos, strand,
+                                                 M=M)
+    slot_on = _ar(M, emit)[None, :] < n.clamp(max=M)[:, None]
+    qh = torch.where(slot_on, pk >> 8, INF32).to(_I32)
+    qspan = torch.where(slot_on, pk & 0xFF, 0).to(_I32)
+    return qh, qpos, qstrand, qspan, qcnt, n
+
+
 def _make_static(cfg, M, M2, A, k, jring=J):
     m = cfg.map
     f = cfg.flt
@@ -581,22 +666,42 @@ def _len_bucket(n):
 class _Group:
     """A batch of query lanes sharing one length bucket."""
 
-    def __init__(self, qids, reads, k, w, device, lanes=GROUP_Q):
+    def __init__(self, qids, reads, k, w, device, lanes=GROUP_Q,
+                 hpc=False):
         self.lanes = lanes
         self.qids = qids                     # lane -> global query index
+        self.hpc = hpc
         self.blen = _len_bucket(max(len(reads[i][1]) for i in qids))
         self.M = self.blen // 2
         self.M2 = self.blen
-        rows = [reads[i][1] for i in qids]
-        rows += ["A" * k] * (lanes - len(rows))
-        packed = di.pack_single_rows(rows, self.blen)
-        words = [di.to_device_words(a, device) for a in packed[:4]]
-        ints = [torch.from_numpy(a).to(device) for a in packed[4:]]
-        res = sketch_tiles(*words, *ints, W=self.blen, k=k, w=w)
-        (self.qh, self.qpos, self.qstrand, self.qcnt,
-         self.n_slots) = _compact_sketch(res["emit"], res["hash"],
-                                         res["pos"], res["strand"],
-                                         M=self.M)
+        if hpc:
+            # homopolymer-compressed entries (sketch.c:90-104): one entry
+            # per run, positions = run-end read coordinate, spans =
+            # windowed run-length sums; the compressed length is at most
+            # the read length, so the read's bucket fits
+            comp = [hpc_compress(reads[i][1], k) for i in qids]
+            comp += [hpc_compress("A" * k, k)] * (lanes - len(comp))
+            codes, lengths, positions, spans = (
+                torch.from_numpy(a).to(device)
+                for a in pack_hpc(comp, self.blen))
+            res = sketch_batch(codes, lengths, w=w, k=k,
+                               positions=positions, spans=spans)
+            (self.qh, self.qpos, self.qstrand, self.qspan, self.qcnt,
+             self.n_slots) = _compact_sketch_hpc(
+                res["emit"], res["hash"], res["pos"], res["strand"],
+                M=self.M)
+        else:
+            rows = [reads[i][1] for i in qids]
+            rows += ["A" * k] * (lanes - len(rows))
+            packed = di.pack_single_rows(rows, self.blen)
+            words = [di.to_device_words(a, device) for a in packed[:4]]
+            ints = [torch.from_numpy(a).to(device) for a in packed[4:]]
+            res = sketch_tiles(*words, *ints, W=self.blen, k=k, w=w)
+            (self.qh, self.qpos, self.qstrand, self.qcnt,
+             self.n_slots) = _compact_sketch(res["emit"], res["hash"],
+                                             res["pos"], res["strand"],
+                                             M=self.M)
+            self.qspan = None
         self.qps, self.n_exp = _pack_group_slots(
             self.qpos, self.qstrand, self.qcnt, self.n_slots)
         self.qlen = torch.tensor(
@@ -613,6 +718,9 @@ class _Group:
         self.lam = torch.zeros(lanes, dtype=_I64, device=device)
         self.lam2 = torch.zeros(lanes, dtype=_I64, device=device)
         self.avgk_set = torch.zeros(lanes, dtype=_I32, device=device)
+        # HPC: the kept-minimizer mean span (f32) of each processed row
+        self.avgk_val = torch.zeros(lanes, dtype=torch.float32,
+                                    device=device) if hpc else None
         self.m_cnts = torch.zeros((lanes, self.M2), dtype=_I32,
                                   device=device)
         self._host_sketch = None
@@ -635,18 +743,21 @@ class _Group:
             qstr = self.qstrand.cpu().numpy()
             qcnt = self.qcnt.cpu().numpy()
             ns = self.n_slots.cpu().numpy()
+            qsp = self.qspan.cpu().numpy() if self.hpc else None
+            resketch = sketch_reads_hpc if self.hpc else \
+                oh.sketch_reads_device
             out = []
             for r in range(self.lanes):
                 if r < len(self.qids) and self.perm_host[r]:
-                    out.append(oh.sketch_reads_device(
-                        [reads[self.qids[r]]], k, w)[0])
+                    out.append(resketch([reads[self.qids[r]]], k, w)[0])
                     continue
                 n = min(int(ns[r]), self.M)
                 rep = np.repeat(np.arange(n), qcnt[r, :n])
+                spans = (qsp[r, rep].astype(np.int64) if self.hpc
+                         else np.full(len(rep), k, np.int64))
                 out.append((qh[r, rep].astype(np.uint64),
                             qpos[r, rep].astype(np.int64),
-                            qstr[r, rep].astype(np.int64),
-                            np.full(len(rep), k, np.int64)))
+                            qstr[r, rep].astype(np.int64), spans))
             self._host_sketch = out
         return self._host_sketch
 
@@ -655,10 +766,12 @@ class _PartIndex:
     """Device index over one target part + host-side metadata (name
     ranks for the AVA order, rid-indexed seq_lens) and the lazy exact
     host index for the per-row fallback. On IndexOverflowError the part
-    is host_only and every row is computed by the host spec."""
+    is host_only and every row is computed by the host spec. HPC parts
+    (the small spike-in control targets, longQC.py:255) take the host
+    spec's index, moved to the device layout."""
 
     def __init__(self, part, k, w, mid_occ_fixed, mid_occ_frac, ladder,
-                 n_idx_sizes, device):
+                 n_idx_sizes, device, hpc=False):
         self.part = part
         self.names = [r[0] for r in part]
         uniq = sorted(set(self.names))
@@ -676,6 +789,30 @@ class _PartIndex:
         self.rid_rank = torch.from_numpy(rid_rank).to(device)
         self.seq_lens = torch.from_numpy(seq_lens).to(device)
         self.host_only = False
+        self.hpc = hpc
+        self._host_index = None
+        self._k, self._w = k, w
+        self.device = device
+        self.ih = self.irid = self.ips = self.mid_occ = None
+        if hpc:
+            self._host_index = hidx = oh.build_index(part, k, w,
+                                                     is_hpc=True,
+                                                     device=device)
+            n_real = len(hidx.h)
+            n_idx = next((s for s in n_idx_sizes if n_real <= s), None)
+            if n_idx is None:
+                self.host_only = True
+                return
+            arrs = []
+            for a, fill in ((hidx.h, INF32), (hidx.rid, 0), (hidx.ps, 0)):
+                full = np.full(n_idx, fill, np.int32)
+                full[:n_real] = a.astype(np.int64)   # hashes < 2^30
+                arrs.append(torch.from_numpy(full).to(device))
+            self.ih, self.irid, self.ips = arrs
+            self.mid_occ = torch.tensor(
+                mid_occ_fixed or hidx.mid_occ(mid_occ_frac),
+                dtype=_I32, device=device)
+            return
         try:
             idx = di.build_device_index(
                 part, k, w, device=device, ladder=ladder,
@@ -687,29 +824,15 @@ class _PartIndex:
             logger.warning("device index overflow; part falls back to "
                            "the host path")
             self.host_only = True
-            self.ih = self.irid = self.ips = self.mid_occ = None
-        self._host_index = None
-        self._k, self._w = k, w
-        self.device = device
 
     def host_index(self):
         """Exact host MinimizerIndex for this part (built lazily, only
         when a flagged row needs the host fallback)."""
         if self._host_index is None:
             self._host_index = oh.build_index(self.part, self._k, self._w,
+                                              is_hpc=self.hpc,
                                               device=self.device)
         return self._host_index
-
-
-def require_device(device):
-    """torch.device for the engine; a CUDA device that is not there
-    raises (the engine never drops to the CPU on its own)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device %s requested but no CUDA device is "
-                           "available (pass device='cpu' explicitly to "
-                           "run the plain kernel versions)" % device)
-    return device
 
 
 class DeviceOverlapEngine:
@@ -721,16 +844,26 @@ class DeviceOverlapEngine:
         the anchor rungs are A_LADDER and the tile / index widths the
         production ladders; on the CPU (plain kernel twins, tests) the
         coarser A_BUCKETS and the small ladders."""
-        if cfg.index.is_hpc or 2 * cfg.index.k > 30:
+        self.hpc = cfg.index.is_hpc
+        if 2 * cfg.index.k > 30:
+            if self.hpc:
+                # HPC keys carry hash << 8 | span and the hash rides int32
+                # lanes (k <= 15); every reference HPC surface (spike-in
+                # filter, pb-hifi main run) uses k = 15
+                raise NotImplementedError("HPC device engine requires "
+                                          "k <= 15")
             raise NotImplementedError(
-                "HPC and 2k > 30 configurations are not ported yet "
-                "(ROADMAP: port queue item 1)")
+                "2k > 30 configurations are not ported yet (ROADMAP: port "
+                "queue item 1, the wide-hash path)")
         self.device = require_device(device)
         on_gpu = self.device.type == "cuda"
         self.cfg = cfg
         self.k, self.w = cfg.index.k, cfg.index.w
-        self.pen_tab = torch.from_numpy(gap_penalty_table(
-            np.float32(self.k), cfg.map.bw)).to(self.device)
+        # HPC rows get their own tables per step (avg_qspan is
+        # data-dependent); plain mode has one for every row
+        self.pen_tab = None if self.hpc else torch.from_numpy(
+            gap_penalty_table(np.float32(self.k), cfg.map.bw)[None, :]
+        ).to(self.device)
         self.a_ladder = A_LADDER if on_gpu else A_BUCKETS
         if on_gpu:
             self.tile_ladder = di.TILE_LADDER
@@ -778,7 +911,8 @@ class DeviceOverlapEngine:
                 for off in range(0, len(idxs), self.lanes):
                     gs.append(_Group(idxs[off:off + self.lanes],
                                      self.queries, self.k, self.w,
-                                     self.device, lanes=self.lanes))
+                                     self.device, lanes=self.lanes,
+                                     hpc=self.hpc))
             self._groups = gs
             self.phase_s["stage"] += time.time() - t0
         return self._groups
@@ -795,7 +929,7 @@ class DeviceOverlapEngine:
             t0 = time.time()
             pidx = _PartIndex(part, self.k, self.w, cfg.map.mid_occ,
                               cfg.map.mid_occ_frac, self.tile_ladder,
-                              self.n_idx_sizes, self.device)
+                              self.n_idx_sizes, self.device, hpc=self.hpc)
             self.phase_s["index"] += time.time() - t0
             self._run_part(pidx)
         t0 = time.time()
@@ -809,11 +943,43 @@ class DeviceOverlapEngine:
         count pass's seed-lookup tables. Returns (packed_small,
         events_full)."""
         st = self._static(g, A, jring=jring)
+        if self.hpc:
+            return self._step_group_hpc(g, pidx, qrank_d, qbisect_d, qvalid,
+                                        st, left, occ)
         (g.lam, g.lam2, g.avgk_set, g.m_cnts, small, full) = _step_impl(
             pidx.irid, pidx.ips, pidx.seq_lens, pidx.rid_rank, pidx.mid_occ,
             left, occ, g.qps, g.qcnt, g.n_slots, g.n_exp, g.qlen, qrank_d,
             qbisect_d, qvalid, g.lam, g.lam2, g.avgk_set, g.m_cnts,
             self.pen_tab, st)
+        self.n_device_calls += 1
+        return small, full
+
+    def _step_group_hpc(self, g, pidx, qrank_d, qbisect_d, qvalid, st, left,
+                        occ):
+        """Two-phase HPC step: anchors and span sums on the device; per
+        row, the f64-exact gap-penalty table of its mean anchor span
+        (the host spec's avg_qspan) and its kept mean span (state.avg_k)
+        on the host; then the chain fill and the accounting on the
+        device."""
+        anchors, stats = _step_hpc_a(
+            pidx.irid, pidx.ips, pidx.rid_rank, pidx.mid_occ, left, occ,
+            g.qps, g.qcnt, g.n_slots, g.qspan, g.qlen, qrank_d, qbisect_d,
+            st)
+        stats_np = stats.cpu().numpy()
+        bw = self.cfg.map.bw
+        pen = np.zeros((self.lanes, bw + 1), np.int32)
+        kept_avg = np.zeros(self.lanes, np.float32)
+        for r, (n_a, ssum, nk, kss, _nq) in enumerate(stats_np.tolist()):
+            if nk > 0:
+                kept_avg[r] = np.float32(kss / nk)
+            if n_a > 0:
+                pen[r] = gap_penalty_table(np.float32(ssum / n_a), bw)
+        dev = self.device
+        (g.lam, g.lam2, g.avgk_set, g.avgk_val, g.m_cnts, small,
+         full) = _step_hpc_b(
+            anchors, pidx.seq_lens, g.qlen, qvalid, g.n_exp, g.lam, g.lam2,
+            g.avgk_set, g.avgk_val, g.m_cnts, torch.from_numpy(pen).to(dev),
+            torch.from_numpy(kept_avg).to(dev), st)
         self.n_device_calls += 1
         return small, full
 
@@ -992,6 +1158,7 @@ class DeviceOverlapEngine:
         lam = g.lam.cpu().numpy().copy()
         lam2 = g.lam2.cpu().numpy().copy()
         avgk = g.avgk_set.cpu().numpy().copy()
+        avgkv = g.avgk_val.cpu().numpy().copy() if g.hpc else None
         mcn = g.m_cnts.cpu().numpy().copy()
         n_exp_np = g.n_exp.cpu().numpy()
         mask = np.zeros(self.lanes, np.int32)
@@ -1005,7 +1172,12 @@ class DeviceOverlapEngine:
                 state = oh.ReadState(0)
                 state.lam = int(lam[r])
                 state.lam2 = int(lam2[r])
-                state.avg_k = np.float32(self.k if avgk[r] else 0.0)
+                if not avgk[r]:
+                    state.avg_k = np.float32(0.0)
+                elif g.hpc:
+                    state.avg_k = np.float32(avgkv[r])
+                else:
+                    state.avg_k = np.float32(self.k)
                 n_exp = int(n_exp_np[r])
                 mc_row = np.zeros(max(n_exp, len(sk[r][0])), np.uint16)
                 upto = min(n_exp, g.M2)
@@ -1032,6 +1204,8 @@ class DeviceOverlapEngine:
             lam[r] = state.lam
             lam2[r] = state.lam2
             avgk[r] = 1 if state.avg_k != 0.0 else 0
+            if g.hpc:
+                avgkv[r] = state.avg_k
             mcn[r, :] = 0
             upto = min(len(state.m_cnts), g.M2)
             mcn[r, :upto] = state.m_cnts[:upto].astype(np.int32)
@@ -1043,6 +1217,8 @@ class DeviceOverlapEngine:
                 torch.from_numpy(mask).to(dev), torch.from_numpy(lam).to(dev),
                 torch.from_numpy(lam2).to(dev),
                 torch.from_numpy(avgk).to(dev), torch.from_numpy(mcn).to(dev))
+            if g.hpc:
+                g.avgk_val = torch.from_numpy(avgkv).to(dev)
 
     def _finalize(self):
         cfg = self.cfg
@@ -1053,6 +1229,7 @@ class DeviceOverlapEngine:
                 t.cpu().numpy() for t in _finalize_group(
                     g.lam, g.lam2, g.m_cnts, g.n_exp))
             n_exp = g.n_exp.cpu().numpy()
+            avgkv = g.avgk_val.cpu().numpy() if g.hpc else None
             for r, qi in enumerate(g.qids):
                 q = self.queries[qi]
                 if qi in self.host_state:
@@ -1067,8 +1244,10 @@ class DeviceOverlapEngine:
                     div = oh.div_score(mv_n, nm, st.avg_k)
                     lam_r, lam2_r = st.lam, st.lam2
                 else:
+                    avg_k = (np.float32(avgkv[r]) if g.hpc
+                             else np.float32(self.k))
                     div = oh.div_score(int(n_exp[r]), int(n_match[r]),
-                                       np.float32(self.k))
+                                       avg_k)
                     lam_r, lam2_r = int(lam[r]), int(lam2[r])
                 rows[qi] = oh.emit_row(
                     q[0], len(q[1]), q[2], lam_r, lam2_r, div,

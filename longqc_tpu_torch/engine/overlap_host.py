@@ -23,8 +23,8 @@ Behavioral citations:
   reliable-region sweep       lqutils.c:83-155
   output rows                 minimap2-coverage.c:545-617
 
-Not ported yet: the HPC sketch and the -d/-z surfaces (index npz cache,
-minimizer-count aggregation).
+Not ported yet: the -d/-z surfaces (index npz cache, minimizer-count
+aggregation).
 """
 
 import numpy as np
@@ -34,6 +34,7 @@ from longqc_tpu_torch.config import OverlapConfig
 from longqc_tpu_torch.io.pack import pack_reads
 from longqc_tpu_torch.ops.quality import mean_q_host
 from longqc_tpu_torch.ops.sketch import sketch_batch, sketch_to_lists
+from longqc_tpu_torch.ops.sketch_hpc import sketch_reads_hpc
 
 UINT16_MAX = 0xFFFF
 
@@ -114,13 +115,15 @@ def sketch_reads_device(reads, k, w, batch_size=128, device="cpu"):
     return out
 
 
+def _sketch_reads(reads, k, w, is_hpc, device):
+    if is_hpc:
+        return sketch_reads_hpc(reads, k, w, device=device)
+    return sketch_reads_device(reads, k, w, device=device)
+
+
 def build_index(target_reads, k, w, is_hpc=False, sketches=None,
                 device="cpu"):
-    if is_hpc:
-        raise NotImplementedError("HPC sketch is not ported yet "
-                                  "(ROADMAP: port queue item 1)")
-    sketches = sketches or sketch_reads_device(target_reads, k, w,
-                                               device=device)
+    sketches = sketches or _sketch_reads(target_reads, k, w, is_hpc, device)
     hs, rids, ps = [], [], []
     for rid, (h, pos, strand, _span) in enumerate(sketches):
         hs.append(h.astype(np.uint64))
@@ -253,7 +256,11 @@ def chain_dp(ax, ay, max_dist, bw, max_skip, min_cnt, min_sc):
             min_d = dq if dq < dr else dr
             sc = q_span if min_d > q_span else min_d
             log_dd = dd.bit_length() - 1 if dd else 0
-            sc -= int(dd * 0.01 * avg_qspan) + (log_dd >> 1)
+            # in f64 as chain.c:67 (double * float): a numpy float32
+            # operand would round the product to f32 under NumPy >= 2,
+            # which truncates differently at some (avg_qspan, dd), e.g.
+            # (15.0, 420) and (15.2, 125)
+            sc -= int(dd * 0.01 * float(avg_qspan)) + (log_dd >> 1)
             sc += f[j]
             if sc > max_f:
                 max_f = sc
@@ -567,15 +574,13 @@ def overlap_run(target_iter, query_reads, cfg: OverlapConfig,
     device: where the tensor sketch runs (the rest is host numpy).
     """
     k, w = cfg.index.k, cfg.index.w
-    if cfg.index.is_hpc:
-        raise NotImplementedError("HPC sketch is not ported yet "
-                                  "(ROADMAP: port queue item 1)")
-    q_sketches = sketch_reads_device(query_reads, k, w, device=device)
+    hpc = cfg.index.is_hpc
+    q_sketches = _sketch_reads(query_reads, k, w, hpc, device)
     states = [ReadState(len(s[0])) for s in q_sketches]
     m = cfg.map
 
     for part in iter_index_parts(target_iter, cfg.index.batch_size):
-        index = build_index(part, k, w, device=device)
+        index = build_index(part, k, w, is_hpc=hpc, device=device)
         mid_occ = m.mid_occ or index.mid_occ(m.mid_occ_frac)
         fopt = {
             "seq_lens": index.seq_lens,

@@ -64,6 +64,17 @@ def lib(verbose=False):
     return _lib
 
 
+def require_device(device):
+    """torch.device for a run; a CUDA device that is not there raises
+    (nothing in the port drops to the CPU on its own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device %s requested but no CUDA device is "
+                           "available (pass device='cpu' explicitly to "
+                           "run the plain kernel versions)" % device)
+    return device
+
+
 def require_cuda(*tensors):
     """Wrapper guard: the kernels take contiguous int32 CUDA tensors of
     one device; anything else raises (no silent fallback)."""

@@ -7,7 +7,8 @@ semantics of the TPU chain kernel (longqc_tpu/ops/chain_pallas): the
 J-deep age-ordered predecessor ring, the two-pass max_skip cut, the
 per-row flag (pass disagreement or ring truncation) and the resumable
 carry. The gap cost `(int)(dd * .01 * avg_qspan) + (ilog2(dd) >> 1)`
-(chain.c:67) is read from the f64-exact host table for every dd <= bw.
+(chain.c:67) is read from the f64-exact host table of the anchor's row
+for every dd <= bw.
 """
 
 import numpy as np
@@ -42,9 +43,10 @@ def chain_dp_batch(ax_hi, ax_lo, aq, aspan, n_anchors, pen_tab, carry, i0,
 
     ax_hi (Q, A) int32 anchor x upper bits (rev<<24 | rid), ax_lo
     target positions, aq query positions, aspan spans, all row-sorted;
-    n_anchors (Q,) total anchors per row; pen_tab (bw+1,) int32 penalty
-    per dd; carry from make_carry or a previous chunk; i0 absolute
-    index of this chunk's first anchor. Returns (f, p, v) (Q, A) int32
+    n_anchors (Q,) total anchors per row; pen_tab (Q, bw+1) int32
+    penalty per dd for each row, or (1, bw+1) for every row; carry
+    from make_carry or a previous chunk; i0 absolute index of this
+    chunk's first anchor. Returns (f, p, v) (Q, A) int32
     (p absolute predecessor index or -1), flags (Q,) bool and the carry
     for the next chunk. Outputs past n_anchors are f=0, p=-1, v=0."""
     Q, A = ax_hi.shape
@@ -54,7 +56,7 @@ def chain_dp_batch(ax_hi, ax_lo, aq, aspan, n_anchors, pen_tab, carry, i0,
     rxh, rxl, rq, rs, rf, rv, rp = [ring[c].to(i64) for c in range(7)]
     flag = cflag != 0
     ages = torch.arange(1, J + 1, dtype=i64, device=dev)[None, :]
-    pen = pen_tab.to(i64).to(dev)
+    pen = pen_tab.to(i64).to(dev).expand(Q, -1)
     nb = n_anchors.to(i64)
     NEGt = torch.full((Q, J), NEG, dtype=i64, device=dev)
     neg1 = torch.full((Q, 1), NEG, dtype=i64, device=dev)
@@ -78,7 +80,8 @@ def chain_dp_batch(ax_hi, ax_lo, aq, aspan, n_anchors, pen_tab, carry, i0,
         dd = (dr - dq).abs()
         valid = valid & (dd <= bw)
         sc0 = torch.minimum(torch.minimum(dq, dr), s[:, None])
-        sc = torch.where(valid, sc0 - pen[dd.clamp(0, bw)] + rf, NEGt)
+        sc = torch.where(valid, sc0 - torch.gather(pen, 1, dd.clamp(0, bw))
+                         + rf, NEGt)
 
         # strict running max in visit (age) order, exclusive prefix
         inc = torch.cummax(sc, dim=1).values

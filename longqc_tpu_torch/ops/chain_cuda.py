@@ -5,10 +5,10 @@ port of longqc_tpu/ops/chain_pallas.chain_dp_batch_pallas) and runs the
 plain version ops/chain.chain_dp_batch on CPU tensors; both have the
 same contract (see there). Differences from the TPU kernel's contract:
 the layout is (Q, A) row-major, the carry is (7, Q, J) + (Q,), and the
-gap cost comes from the f64-exact table instead of fixed-point limbs,
-so there is no per-row "no exact multiplier" flag and bw is bounded
-only by the shared memory that holds the table beside the ring
-(MAX_BW).
+gap cost comes from f64-exact tables (one per row, (Q, bw+1), or one
+for every row, (1, bw+1)) instead of per-row fixed-point limbs, so
+there is no per-row "no exact multiplier" flag and bw is bounded only
+by the shared memory that holds the table beside the ring (MAX_BW).
 """
 
 import torch
@@ -28,10 +28,11 @@ def chain_dp_fill(ax_hi, ax_lo, aq, aspan, n_anchors, pen_tab, carry, i0,
     if J not in J_RUNGS:
         raise ValueError("chain kernel ring depth J must be one of %s"
                          % (J_RUNGS,))
-    if bw > MAX_BW or tuple(pen_tab.shape) != (bw + 1,):
-        raise ValueError("penalty table must be (bw+1,) with bw <= %d"
-                         % MAX_BW)
     Q, A = ax_hi.shape
+    if bw > MAX_BW or pen_tab.dim() != 2 or \
+            pen_tab.shape[0] not in (1, Q) or pen_tab.shape[1] != bw + 1:
+        raise ValueError("penalty tables must be (Q or 1, bw+1) with "
+                         "bw <= %d" % MAX_BW)
     ring, cflag = carry
     if tuple(ring.shape) != (7, Q, J) or tuple(cflag.shape) != (Q,):
         raise ValueError("carry shape does not match (Q, J)")

@@ -11,7 +11,9 @@ Hashes ride int64 lanes for every k (<= 28): each step of hash64
 re-masks to 2k bits, so a wrap mod 2^64 leaves the masked value as the
 reference's u64 arithmetic does, and every right shift acts on a
 masked, non-negative value, so it is logical. The sentinel of an
-ineligible entry is int64 max, above every 2k-bit hash.
+ineligible entry is int64 max, above every 2k-bit hash. Under HPC
+(homopolymer-compressed input with per-entry spans, ops/sketch_hpc) the
+key is the packed hash << 8 | span, non-negative for k <= 27.
 """
 
 import numpy as np
@@ -68,9 +70,15 @@ def _sliding_rightmost_min(x, w):
     return vals, idxs
 
 
-def _sketch_core(codes, lengths, *, w, k, seg=None):
-    """Batched minimizer sketch over padded (B, L) code tiles (plain
-    mode: positions = arange, span = k).
+def _sketch_core(codes, lengths, *, w, k, positions=None, spans=None,
+                 seg=None):
+    """Batched minimizer sketch over padded (B, L) code tiles.
+
+    positions/spans: optional (B, L) overrides for homopolymer-compressed
+    input (codes then hold one entry per HPC run; positions = run end
+    index in the original read, spans = windowed sum of the last <= k
+    run lengths, sketch.c:92-104). Default (plain mode): positions =
+    arange, span = k.
 
     seg: optional (B, L) int read-segment ids for multi-read packed rows
     (non-decreasing along each row; each segment opens with >= w-1
@@ -78,10 +86,11 @@ def _sketch_core(codes, lengths, *, w, k, seg=None):
     are gated so each segment sketches as a standalone read.
 
     Returns a dict of (B, L) tensors aligned to buffer-entry positions:
-    emit (int32 emission count), hash (int64; UMAX when ineligible),
-    pos (int32 read position of the k-mer's last base), strand (int32),
-    n_entries (B,), and seg when given."""
-    assert 0 < w < 256 and 0 < k <= 28
+    emit (int32 emission count), hash (int64 bare hash, or the packed
+    hash << 8 | span under HPC; UMAX when ineligible), pos (int32 read
+    position of the k-mer's last base), strand (int32), n_entries (B,),
+    and seg when given."""
+    assert 0 < w < 256 and 0 < k <= (28 if spans is None else 27)
     dev = codes.device
     B, L = codes.shape
     i64 = torch.int64
@@ -143,9 +152,16 @@ def _sketch_core(codes, lengths, *, w, k, seg=None):
     def compact(arr):
         return torch.gather(arr, 1, pos_of_srank)
 
-    eligible = valid & (l_r >= k)
-    xs = compact(torch.where(eligible, hash_r, torch.full_like(hash_r, UMAX)))
-    rpos = pos.expand(B, L)
+    if spans is None:
+        eligible = valid & (l_r >= k)
+        packed_r = hash_r
+    else:
+        span_r = spans.to(i64)
+        eligible = valid & (l_r >= k) & (span_r < 256) & (span_r > 0)
+        packed_r = (hash_r << 8) | (span_r & 0xFF)
+    xs = compact(torch.where(eligible, packed_r,
+                             torch.full_like(hash_r, UMAX)))
+    rpos = pos.expand(B, L) if positions is None else positions.to(i64)
     ys_pos = compact(torch.where(valid, rpos, torch.zeros_like(rpos)))
     ys_strand = compact(strand_r)
     ls = compact(l_r)
@@ -221,15 +237,20 @@ def _sketch_core(codes, lengths, *, w, k, seg=None):
     return out
 
 
-def sketch_batch(codes, lengths, *, w, k):
-    """Plain-mode sketch of a (B, L) code batch (see _sketch_core)."""
-    return _sketch_core(codes, lengths, w=w, k=k)
+def sketch_batch(codes, lengths, *, w, k, positions=None, spans=None):
+    """Sketch of a (B, L) code batch (see _sketch_core); HPC input
+    passes its positions and spans."""
+    return _sketch_core(codes, lengths, w=w, k=k, positions=positions,
+                        spans=spans)
 
 
-def sketch_to_lists(res, k):
+def sketch_to_lists(res, k=None, packed=False):
     """Host compaction of sketch_batch output into per-read
     (hash u64, pos, strand, span) numpy arrays in position order with
-    multiplicity (span == k in plain mode)."""
+    multiplicity. Plain mode stores bare hashes (span == k, given as
+    k); HPC output (packed=True) stores hash << 8 | span."""
+    if not packed and k is None:
+        raise ValueError("bare-hash sketch output needs k for spans")
     emit = res["emit"].cpu().numpy()
     hsh = res["hash"].cpu().numpy()
     pos = res["pos"].cpu().numpy()
@@ -238,8 +259,11 @@ def sketch_to_lists(res, k):
     for b in range(emit.shape[0]):
         idx = np.nonzero(emit[b] > 0)[0]
         rep = np.repeat(idx, emit[b][idx])
-        out.append((hsh[b][rep].astype(np.uint64),
-                    pos[b][rep].astype(np.int64),
-                    strand[b][rep].astype(np.int64),
-                    np.full(len(rep), k, np.int64)))
+        hh = hsh[b][rep]
+        if packed:
+            h, span = hh >> 8, hh & 0xFF
+        else:
+            h, span = hh, np.full(len(rep), k, np.int64)
+        out.append((h.astype(np.uint64), pos[b][rep].astype(np.int64),
+                    strand[b][rep].astype(np.int64), span.astype(np.int64)))
     return out

@@ -57,7 +57,7 @@ def _jax(axh, axl, aq, nb, J, c0=0, carry=None):
 
 def _port(axh, axl, aq, nb, J, c0=0, carry=None):
     A = axh.shape[1]
-    pen = torch.from_numpy(gap_penalty_table(np.float32(12), BW))
+    pen = torch.from_numpy(gap_penalty_table(np.float32(12), BW))[None, :]
     return chain_dp_fill(t32(axh), t32(axl), t32(aq),
                          torch.full((Q, A), 12, dtype=torch.int32), t32(nb),
                          pen, carry if carry is not None else make_carry(Q, J),

@@ -1,6 +1,7 @@
 """`python -m longqc_tpu_torch mmcov` prints the same TSV as
 `python -m longqc_tpu mmcov` (the port on CPU tensors, --device cpu),
-and the surfaces that are not ported yet say so."""
+in plain mode and in the HPC spike-in filter run, and the surfaces that
+are not ported yet say so."""
 
 import json
 
@@ -45,10 +46,34 @@ def test_mmcov_output_matches_jax_package(tmp_path, capsys, flags):
     assert st["device_calls"] >= 1 and "step" in st["phase_s"]
 
 
+def test_mmcov_hpc_filter_matches_jax_package(tmp_path, capsys):
+    """The spike-in control filter run (longQC.py:255): one small
+    control genome as the target, reads of which a few come from it."""
+    rng = np.random.RandomState(41)
+    control = make_genome(rng, 6000)
+    reads = sample_reads(rng, make_genome(rng, 15000), 14, min_len=600,
+                         max_len=1400, err=0.12, junk_frac=0.1)
+    reads += [["ctl%d" % i] + r[1:] for i, r in enumerate(sample_reads(
+        rng, control, 6, min_len=600, max_len=1400, err=0.12))]
+    tf = str(tmp_path / "control.fa")
+    qf = str(tmp_path / "query.fq")
+    with open(tf, "w") as f:
+        f.write(">control\n%s\n" % control)
+    write_fastq_file(qf, reads)
+    flags = ["-H", "-k", "15", "-w", "10", "-c", "1", "-l", "0", "--filter"]
+    assert jax_main(["mmcov"] + flags + [tf, qf]) == 0
+    want = capsys.readouterr().out
+    assert main(["mmcov"] + flags + ["--device", "cpu", tf, qf]) == 0
+    got = capsys.readouterr().out
+    assert got == want
+    rows = got.splitlines()
+    assert len(rows) == 20
+    # the control-derived reads are the ones the filter marks
+    assert sum(r.split("\t")[3] != "0" for r in rows[14:]) >= 4
+
+
 def test_unported_surfaces(tmp_path):
     tf, qf = _dataset(tmp_path, n=20, nq=4)
-    with pytest.raises(NotImplementedError):
-        main(["mmcov", "-H", "--device", "cpu", tf, qf])
     for argv in (["mmcov", "-z", "--device", "cpu", tf, qf],
                  ["sampleqc", "-x", "ont-ligation", "-o", "out", tf],
                  ["runqc", "minion", "dir"]):

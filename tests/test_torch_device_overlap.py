@@ -87,7 +87,8 @@ def test_count_and_step_match_jax_through_convert():
     jst = jdo._make_static(cfg_j, Q, jg.M, jg.M2, A, k, True)
     tst = tdo._make_static(cfg_t, jg.M, jg.M2, A, k)
     limbs5 = jnp.asarray(penalty_limbs(float(np.float32(k)), cfg_j.map.bw))
-    pen = torch.from_numpy(gap_penalty_table(np.float32(k), cfg_t.map.bw))
+    pen = torch.from_numpy(gap_penalty_table(np.float32(k),
+                                             cfg_t.map.bw))[None, :]
     jstate = [jnp.asarray(arrays[n]) for n in convert.STATE_ARRAYS]
     tstate = [g[n] for n in convert.STATE_ARRAYS]
     # two consecutive steps: the second starts from a nonzero state

@@ -21,7 +21,8 @@ for m in mods:
 assert "jax" not in sys.modules, "jax imported"
 assert not any(m == "longqc_tpu" or m.startswith("longqc_tpu.")
                for m in sys.modules), "JAX package imported"
-from longqc_tpu_torch.ops import _ext, sketch_cuda, ringprop
+from longqc_tpu_torch.ops import _ext, extend, ringprop, sketch_cuda, \
+    sketch_hpc
 from longqc_tpu_torch.engine import device_index as di
 # CPU tensors take the plain versions: no kernel build, no launch
 packed = di.pack_single_rows(["ACGTTGCAAGGCTTAACCGG" * 20], 512)
@@ -31,6 +32,12 @@ res = sketch_cuda.sketch_tiles(*words, *ints, W=512, k=12, w=5)
 assert int(res["emit"].sum()) > 0
 z = torch.zeros((2, 256), dtype=torch.int32)
 ringprop.peak_pass(z, z, z - 1)
+codes = torch.randint(0, 4, (2, 64), dtype=torch.int32)
+lens = torch.tensor([64, 50], dtype=torch.int32)
+extend.extz_batch(codes, lens, codes, lens, W=8)
+comp = sketch_hpc.hpc_compress("AACCCGTTTTNNAG", 5)
+assert len(comp[0]) == 8
+assert "jax" not in sys.modules, "jax imported"
 assert _ext._lib is None and not _ext.LAUNCHES
 print(len(mods))
 """
@@ -40,7 +47,7 @@ def test_import_leaves_jax_out_and_builds_nothing():
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 18
 
 
 def test_engine_never_drops_to_cpu_on_its_own():
@@ -64,12 +71,13 @@ def test_kernel_wrappers_refuse_cpu_mixed_inputs():
         _ext.require_cuda(torch.zeros(3, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("cfg", [
-    OverlapConfig(index=IndexOpt(k=15, w=10, is_hpc=True)),
-    OverlapConfig(index=IndexOpt(k=19, w=10)),
+@pytest.mark.parametrize("cfg,match", [
+    # the JAX engine's rule: HPC keys ride int32 lanes, so k <= 15
+    (OverlapConfig(index=IndexOpt(k=19, w=10, is_hpc=True)), "k <= 15"),
+    (OverlapConfig(index=IndexOpt(k=19, w=10)), "ROADMAP"),
 ], ids=["hpc", "wide"])
-def test_unported_configs_raise(cfg):
+def test_unported_configs_raise(cfg, match):
     from longqc_tpu_torch.engine.overlap import overlap_run_device
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=match):
         overlap_run_device([], [["q", "ACGT" * 50, ""]], cfg, device="cpu")

@@ -1,6 +1,6 @@
-"""The four CUDA kernels against their plain versions on the card
-(marked `cuda`: they need a GPU and nvcc, and skip elsewhere).
-chip_smoke.py runs the same comparisons at production shapes."""
+"""The CUDA kernels against their plain versions on the card (marked
+`cuda`: they need a GPU and nvcc, and skip elsewhere). chip_smoke.py
+runs the same comparisons at production shapes."""
 
 import numpy as np
 import pytest
@@ -8,6 +8,7 @@ import torch
 import torch_util  # noqa: F401
 
 from longqc_tpu_torch.engine import device_index as di
+from longqc_tpu_torch.ops import extend as ext
 from longqc_tpu_torch.ops import ringprop as rp
 from longqc_tpu_torch.ops import sketch_cuda as skc
 from longqc_tpu_torch.ops.chain import (chain_dp_batch, gap_penalty_table,
@@ -57,15 +58,20 @@ def _anchor_rows(rng, Q, A, dense):
             (pos, np.clip(q, 0, None), n)]
 
 
+@pytest.mark.parametrize("tables", ["one", "per_row"])
 @pytest.mark.parametrize("dense", [False, True], ids=["spread", "dense"])
 @pytest.mark.parametrize("J", [64, 128, 256])
-def test_chain_and_ringprop_kernels_match_plain(dev, J, dense):
+def test_chain_and_ringprop_kernels_match_plain(dev, J, dense, tables):
     rng = np.random.RandomState(J + dense)
     Q, A = 128, 512
     axl, aq, n = (t.to(dev) for t in _anchor_rows(rng, Q, A, dense))
     axh = torch.zeros((Q, A), dtype=torch.int32, device=dev)
     span = torch.full((Q, A), 12, dtype=torch.int32, device=dev)
-    pen = torch.from_numpy(gap_penalty_table(np.float32(12), 500)).to(dev)
+    # the plain engine's one (1, bw+1) table (row stride 0), or a
+    # distinct table per row (the HPC engine's per-row avg_qspan)
+    avg = [12] if tables == "one" else [12 + r / 7 for r in range(Q)]
+    pen = torch.from_numpy(np.stack([
+        gap_penalty_table(np.float32(a), 500) for a in avg])).to(dev)
     ko = chain_dp_fill(axh, axl, aq, span, n, pen, make_carry(Q, J, dev), 0,
                        J=J)
     po = chain_dp_batch(axh, axl, aq, span, n, pen, make_carry(Q, J, dev), 0,
@@ -96,3 +102,36 @@ def test_chain_and_ringprop_kernels_match_plain(dev, J, dense):
                       rp.INF32).int()
     assert torch.equal(rp.minrank_pass(p, own, J=J),
                        rp.minrank_pass_plain(p, own, J=J))
+
+
+def _ext_pairs(rng, B, Lq, Lt):
+    """Related pairs (10% substitutions, a deletion), unrelated pairs
+    (Z-drop fires) and unequal lengths, some past the arrays' width."""
+    q = rng.randint(0, 4, (B, Lq))
+    t = q[:, :Lt].copy()
+    sub = rng.rand(B, Lt) < 0.1
+    t[sub] = rng.randint(0, 5, sub.sum())
+    for b in range(0, B, 3):
+        t[b] = rng.randint(0, 4, Lt)
+    for b in range(1, B, 5):
+        cut = rng.randint(0, Lt // 2)
+        t[b, cut:] = np.concatenate([t[b, cut + 30:], rng.randint(0, 4, 30)])
+    ql = rng.randint(Lq // 3, Lq + 20, B)
+    tl = rng.randint(Lt // 3, Lt + 20, B)
+    return [torch.from_numpy(a.astype(np.int32)) for a in (q, ql, t, tl)]
+
+
+@pytest.mark.parametrize("W", [1, 15, 16, 32, 40, 63])
+@pytest.mark.parametrize("mode", ["extz", "extd"])
+def test_extend_kernel_matches_plain(dev, mode, W):
+    rng = np.random.RandomState(W)
+    q, ql, t, tl = (a.to(dev) for a in _ext_pairs(rng, 300, 700, 650))
+    gap = {"gapo2": 24, "gape2": 1} if mode == "extd" else {}
+    for zdrop in (100, 400):
+        k = ext.extz_batch(q, ql, t, tl, W=W, zdrop=zdrop, **gap)
+        p = ext.extz_batch_plain(q, ql, t, tl, W=W, zdrop=zdrop, **gap)
+        for key in ext.KEYS:
+            assert torch.equal(k[key], p[key]), key
+        assert bool(k["zdropped"].any()) and not bool(k["zdropped"].all())
+    with pytest.raises(ValueError):
+        ext.extz_batch(q, ql, t, tl, W=64, **gap)
