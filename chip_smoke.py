@@ -6,21 +6,30 @@
 Phases (any failure raises, so the script exits nonzero and never
 prints the final result line):
   1. environment: card name and power limit, torch / CUDA / nvcc /
-     triton; no CUDA device -> fail
+     triton, the compiler variables of the environment; no CUDA
+     device -> fail
   2. build the five kernels (B1 sketch, B2 chain fill, B3 peak,
-     B4 min-rank, B5 extension) from longqc_tpu_torch/csrc
+     B4 min-rank, B5 extension) from longqc_tpu_torch/csrc, and the
+     port's FASTA/FASTQ reader (csrc/fastx_native.cpp, g++ -O3)
   3. B1-B4 against their plain PyTorch versions on the card, at
      production shapes, with exact equality (tolerance 0: all outputs
-     are integers; B2 twice: with the one gap-penalty table of the
-     plain engine, row stride 0, and with one table per row, as the HPC
-     engine gives it); both times printed
+     are integers): B1 on 256 x 8192 and 32 x 65536 tiles of reads with
+     (AT)n and N runs longer than its column chunk; B2 twice (with the
+     one gap-penalty table of the plain engine, row stride 0, and with
+     one table per row, as the HPC engine gives it) on rows whose
+     windows run deeper than 256 ages, with the ages each anchor scans;
+     B3 / B4 with no window limit (J = A), as the engine calls them;
+     both times and each kernel's bound printed
   4. small end to end: the engine's rows on the card equal the port's
      host spec (overlap_host.overlap_run)
   5. realistic `mmcov` run through longqc_tpu_torch.cli.main at the
      ont-ligation sample configuration (k=12 w=5 -p 160 -q 160 -l 0):
      10 Mbp genome, 20,000 target reads of 1-8 kbp (~9x), 5,000
-     queries; kernel launch counts, host-fixed rows (<= 5%) and 32
-     random queries' rows against the host spec
+     queries; the reader (native, else fail) and its parse seconds,
+     kernel launch counts (step calls = B2 launches), retry steps,
+     flag counts, host-fixed rows (<= 5%) and 32 random queries' rows
+     against the host spec; then one more run of the same command under
+     torch.profiler for each kernel's total device time on the path
   6. B5, the banded extension (ops/extend.extz_batch), on 8,192 pairs
      of 500-4,000 bp (10 Mbp genome, err 0.12, 20% unrelated pairs so
      Z-drop fires; W=63, zdrop=400, scores 2/-4/4/2, extd adds 24/1):
@@ -30,12 +39,18 @@ prints the final result line):
   7. the HPC spike-in-control filter run through cli.main
      (mmcov -H -k 15 -w 10 -c 1 -l 0 --filter) against the Sequel
      control reference in the repository: 5,000 queries of 1-8 kbp,
-     100 of them from the (unrolled) control; B2-B4 launch counts,
-     host-fixed rows (<= 5%) and the rows of every control-derived
-     query and 32 random others against the host spec
+     100 of them from the (unrolled) control; the reader (native, else
+     fail), B2-B4 launch counts, host-fixed rows (<= 5%), the filter
+     marking every control-derived query and no other, and the rows of
+     every control-derived query and 32 random others against the host
+     spec
 Kernel launch counts are reset just before each path (phases 5, 6, 7)
-and read just after it. The line before the last is
-{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.
+and read just after it. Each kernel's bound is the larger of its bytes
+(each input read once, each output written once) over 3.35 TB/s and
+its integer operations (counted from this run's data) over 67 T/s, the
+card's 32-bit rate outside the tensor cores. The line before the last
+but one is {"kernels": [...]}, the line before the last the card's
+name and power limit, the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -71,6 +86,15 @@ SOURCES = {
 }
 MMCOV_KERNELS = ("sketch", "chain", "peak", "minrank")
 HPC_KERNELS = ("chain", "peak", "minrank")
+# CUDA kernel symbol prefix -> kernel name (the profiler's key)
+SYMBOLS = {"lq_sketch": "sketch", "lq_chain": "chain", "lq_peak": "peak",
+           "lq_minrank": "minrank"}
+HBM_BYTES_S = 3.35e12   # H100 SXM device memory
+INT_OPS_S = 67e12       # 32-bit operations outside the tensor cores
+# integer operations of the function per unit of work (see PERF.md)
+OPS_PER_COLUMN = 30     # B1, plus 2 per ring slot
+OPS_PER_AGE = 20        # B2, per predecessor the reference visits
+OPS_PER_CELL = {"extz": 12, "extd": 18}   # B5, per band cell
 
 
 def log(*a):
@@ -100,6 +124,16 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the byte and operation times."""
+    tb, to = nbytes / HBM_BYTES_S, ops / INT_OPS_S
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def max_abs(a, b):
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
@@ -117,23 +151,25 @@ def require_equal(name, a, b):
 
 
 def synth_part(rng, n, lo, hi):
-    """Reads with N runs and (AT)n stretches (symmetric k-mers)."""
+    """Reads with N runs and (AT)n stretches (symmetric k-mers), many
+    longer than B1's column chunk (ops/sketch_cuda.CHUNK)."""
     reads = []
     for i in range(n):
         s = "".join(rng.choice("ACGT") for _ in range(rng.randint(lo, hi)))
         if i % 7 == 3:
             p = rng.randint(0, len(s) - 40)
-            s = s[:p] + "N" * rng.randint(1, 30) + s[p + 30:]
+            s = s[:p] + "N" * rng.randint(1, 700) + s[p + 30:]
         if i % 11 == 5:
             p = rng.randint(0, len(s) // 2)
-            s = s[:p] + "AT" * rng.randint(20, 400) + s[p:]
-        reads.append(["s%05d" % i, s, ""])
+            s = s[:p] + "AT" * rng.randint(20, 900) + s[p:]
+        reads.append(["s%05d" % i, s[:hi]])
     return reads
 
 
 def check_sketch(dev, k, w):
     import torch
     from longqc_tpu_torch.engine import device_index as di
+    from longqc_tpu_torch.ops import _ext
     from longqc_tpu_torch.ops import sketch_cuda as skc
 
     rng = random.Random(5)
@@ -145,6 +181,8 @@ def check_sketch(dev, k, w):
             for r in synth_part(rng, 64, lo, hi):
                 b.add(gid, r[1])
                 gid += 1
+        n_run = sum(1 for row in b.rows[:R] for _, sq in row
+                    if "N" * 129 in sq or "AT" * 65 in sq)
         tile = b.tiles()[0]
         words = [di.to_device_words(a, dev) for a in
                  (tile.codes2, tile.nmask, tile.startmask, tile.endmask)]
@@ -162,16 +200,36 @@ def check_sketch(dev, k, w):
         ms = cuda_ms(lambda: skc.sketch_tiles(*args, W=W, k=k, w=w), 5)
         pms = cuda_ms(lambda: skc.sketch_tiles_plain(*args, W=W, k=k, w=w),
                       2)
-        log("B1 sketch %dx%d: equal (%d emissions); kernel %.3f ms, "
-            "plain %.3f ms" % (R, W, int(plain["emit"].sum()), ms, pms))
+        b_ms, b_by = bound(nbytes(*args) + 5 * R * W * 4,
+                           R * W * (OPS_PER_COLUMN + 2 * w))
+        # the wrapper's two parts: the chunk plan (tensor ops) and the
+        # kernel launch alone on that plan
+        plan_ms = cuda_ms(lambda: skc.chunk_plan(*args[:3], W=W, k=k, w=w,
+                                                 chunk=skc.CHUNK), 5)
+        plan = skc.chunk_plan(*args[:3], W=W, k=k, w=w, chunk=skc.CHUNK)
+        outs = [torch.zeros((R, W), dtype=torch.int32, device=dev)
+                for _ in range(5)]
+        lib = _ext.lib()
+        k_ms = cuda_ms(lambda: lib.sketch_rows(*args, plan, *outs, W, k, w,
+                                               skc.CHUNK), 5)
+        log("B1 sketch %dx%d: equal (%d emissions; %d reads with an N or "
+            "(AT)n run longer than the %d-column chunk); wrapper %.3f ms "
+            "(plan %.3f ms, kernel alone %.3f ms), plain %.3f ms, bound "
+            "%.4f ms (%s)"
+            % (R, W, int(plain["emit"].sum()), n_run, skc.CHUNK, ms,
+               plan_ms, k_ms, pms, b_ms, b_by))
         out.setdefault("sketch", dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                      bound_ms=b_ms, bound_by=b_by,
+                                      kernel_alone_ms=k_ms,
                                       shape="%dx%d" % (R, W)))
     return out
 
 
 def rand_anchor_rows(rng, Q, A):
     """Anchor rows shaped like the engine's: sorted target positions in
-    a few (rid, rev) groups, clustered diagonals, repeat-dense runs."""
+    a few (rid, rev) groups, clustered diagonals, repeat-dense runs,
+    and (one row in eight) (AT)n-like runs whose pairings are mostly
+    invalid, so the scans reach back past 256 ages."""
     import numpy as np
     axh = np.zeros((Q, A), np.int32)
     axl = np.zeros((Q, A), np.int32)
@@ -188,6 +246,13 @@ def rand_anchor_rows(rng, Q, A):
         pos = pos[np.lexsort((pos, grp))]
         diag = rng.randint(0, 3, n) * rng.randint(1, 400)
         q = pos + diag + rng.randint(-40, 40, n)
+        if r % 8 == 4:      # (AT)n-like: scattered query positions
+            n = nb[r] = min(A, rng.randint(600, 1200))
+            pos = np.sort(rng.randint(0, 1500, n))
+            grp = np.zeros(n, np.int64)
+            q = rng.randint(0, 30000, n)
+            near = rng.rand(n) < 0.3
+            q[near] = pos[near] + rng.randint(-30, 30, int(near.sum()))
         axh[r, :n] = grp
         axl[r, :n] = pos
         aq[r, :n] = np.clip(q, 0, None)
@@ -197,16 +262,14 @@ def rand_anchor_rows(rng, Q, A):
 def check_chain_ringprop(dev, k, bw=500):
     import numpy as np
     import torch
-    from longqc_tpu_torch.ops.chain import gap_penalty_table, make_carry
+    from longqc_tpu_torch.ops.chain import chain_dp_batch, gap_penalty_table
     from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill
-    from longqc_tpu_torch.ops.chain import chain_dp_batch
     from longqc_tpu_torch.ops import ringprop as rp
 
     Q, A = 128, 8192
     rng = np.random.RandomState(3)
     axh, axl, aq, nb = (torch.from_numpy(a).to(dev)
                         for a in rand_anchor_rows(rng, Q, A))
-    A = axh.shape[1]
     span = torch.full((Q, A), k, dtype=torch.int32, device=dev)
     # the plain engine's one table (row stride 0), then one table per
     # row fitted to distinct mean spans (the HPC engine's)
@@ -217,65 +280,71 @@ def check_chain_ringprop(dev, k, bw=500):
             for r in range(Q)])).to(dev)}
     out = {}
     for tab, pen in tables.items():
-        for J in (64, 128, 256):
-            def kern():
-                return chain_dp_fill(axh, axl, aq, span, nb, pen,
-                                     make_carry(Q, J, dev), 0, J=J, bw=bw)
-            fk, pk, vk, flk, ck = kern()
-            t = time.time()
-            fp, pp, vp, flp, cp = chain_dp_batch(
-                axh, axl, aq, span, nb, pen, make_carry(Q, J, dev), 0, J=J,
-                bw=bw)
-            torch.cuda.synchronize()
-            pms = (time.time() - t) * 1e3
-            err = 0
-            for nm, a, b in (("f", fk, fp), ("p", pk, pp), ("v", vk, vp),
-                             ("flags", flk, flp), ("carry", ck[0], cp[0]),
-                             ("carry flag", ck[1], cp[1])):
-                err = max(err, require_equal("chain %s J=%d %s"
-                                             % (tab, J, nm), a, b))
-            ms = cuda_ms(kern, 3)
-            log("B2 chain Q=%d A=%d J=%d, %s: equal (%d/%d rows flagged); "
-                "kernel %.3f ms, plain %.3f ms"
-                % (Q, A, J, tab, int(flk.sum()), Q, ms, pms))
-            if J == 64:
-                prev = out.get("chain", {}).get("max_abs_err", 0)
-                out["chain"] = dict(max_abs_err=max(err, prev), ms=ms,
-                                    plain_ms=pms,
-                                    shape="Q=%d A=%d J=%d" % (Q, A, J))
-                f64, p64, v64 = fk, pk, vk
+        def kern():
+            return chain_dp_fill(axh, axl, aq, span, nb, pen, bw=bw)
+        fk, pk, vk = kern()
+        t = time.time()
+        fp, pp, vp, scan = chain_dp_batch(axh, axl, aq, span, nb, pen, bw=bw,
+                                          return_scan=True)
+        torch.cuda.synchronize()
+        pms = (time.time() - t) * 1e3
+        err = 0
+        for nm, a, b in (("f", fk, fp), ("p", pk, pp), ("v", vk, vp)):
+            err = max(err, require_equal("chain %s %s" % (tab, nm), a, b))
+        ms = cuda_ms(kern, 3)
+        row_max = scan.amax(dim=1)
+        b_ms, b_by = bound(nbytes(axh, axl, aq, span, nb, pen) + 3 * Q * A * 4,
+                           int(scan.long().sum()) * OPS_PER_AGE)
+        log("B2 chain Q=%d A=%d, %s: equal; ages scanned per anchor: max "
+            "%d, total %d; > 64 ages: %d rows, %d anchors; > 256 ages: %d "
+            "rows, %d anchors; kernel %.3f ms, plain %.3f ms, bound %.4f ms "
+            "(%s)" % (Q, A, tab, int(row_max.max()), int(scan.long().sum()),
+                      int((row_max > 64).sum()), int((scan > 64).sum()),
+                      int((row_max > 256).sum()), int((scan > 256).sum()),
+                      ms, pms, b_ms, b_by))
+        if not (row_max > 256).any():
+            raise AssertionError("no B2 row scans past 256 ages")
+        prev = out.get("chain", {}).get("max_abs_err", 0)
+        out["chain"] = dict(max_abs_err=max(err, prev), ms=ms, plain_ms=pms,
+                            bound_ms=b_ms, bound_by=b_by,
+                            shape="Q=%d A=%d (%s)" % (Q, A, tab))
+    f, p, v = fk, pk, vk
 
-    pk_k = rp.peak_pass(f64, v64, p64, J=64)
+    # parents lie any distance back: no window limit, as the engine
+    pk_k = rp.peak_pass(f, v, p, J=A)
     t = time.time()
-    pk_p = rp.peak_pass_plain(f64, v64, p64, J=64)
+    pk_p = rp.peak_pass_plain(f, v, p, J=A)
     torch.cuda.synchronize()
     pms = (time.time() - t) * 1e3
     err = require_equal("peak", pk_k, pk_p)
-    ms = cuda_ms(lambda: rp.peak_pass(f64, v64, p64, J=64), 5)
-    log("B3 peak Q=%d A=%d: equal; kernel %.3f ms, plain %.3f ms"
-        % (Q, A, ms, pms))
-    out["peak"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                       shape="Q=%d A=%d" % (Q, A))
+    ms = cuda_ms(lambda: rp.peak_pass(f, v, p, J=A), 5)
+    b_ms, b_by = bound(4 * Q * A * 4, 0)
+    log("B3 peak Q=%d A=%d J=A: equal; kernel %.3f ms, plain %.3f ms, "
+        "bound %.4f ms (%s)" % (Q, A, ms, pms, b_ms, b_by))
+    out["peak"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                       bound_by=b_by, shape="Q=%d A=%d" % (Q, A))
 
     # own ranks at chain ends (anchors nobody points at), random order
     g = torch.Generator(device="cpu").manual_seed(9)
     on = torch.arange(A, device=dev)[None, :] < nb[:, None].long()
-    child = (p64 >= 0) & on
+    child = (p >= 0) & on
     is_par = torch.zeros((Q, A + 1), dtype=torch.bool, device=dev)
-    is_par.scatter_(1, torch.where(child, p64, A).long(), True)
+    is_par.scatter_(1, torch.where(child, p, A).long(), True)
     ends = on & ~is_par[:, :A]
     ranks = torch.randint(0, 4096, (Q, A), generator=g).to(dev).int()
     own = torch.where(ends, ranks, rp.INF32).int()
-    mr_k = rp.minrank_pass(p64, own, J=64)
+    mr_k = rp.minrank_pass(p, own, J=A)
     t = time.time()
-    mr_p = rp.minrank_pass_plain(p64, own, J=64)
+    mr_p = rp.minrank_pass_plain(p, own, J=A)
     torch.cuda.synchronize()
     pms = (time.time() - t) * 1e3
     err = require_equal("minrank", mr_k, mr_p)
-    ms = cuda_ms(lambda: rp.minrank_pass(p64, own, J=64), 5)
-    log("B4 minrank Q=%d A=%d: equal; kernel %.3f ms, plain %.3f ms"
-        % (Q, A, ms, pms))
+    ms = cuda_ms(lambda: rp.minrank_pass(p, own, J=A), 5)
+    b_ms, b_by = bound(3 * Q * A * 4, 0)
+    log("B4 minrank Q=%d A=%d J=A: equal; kernel %.3f ms, plain %.3f ms, "
+        "bound %.4f ms (%s)" % (Q, A, ms, pms, b_ms, b_by))
     out["minrank"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                          bound_ms=b_ms, bound_by=b_by,
                           shape="Q=%d A=%d" % (Q, A))
     return out
 
@@ -316,6 +385,42 @@ def write_fastq(path, reads):
     with open(path, "w") as f:
         for name, seq, qual in reads:
             f.write("@%s\n%s\n+\n%s\n" % (name, seq, qual))
+
+
+def check_reader(stats, phase):
+    """The port's own native reader parsed the inputs; print its build
+    and parse seconds (fail otherwise)."""
+    rd = stats["reader"]
+    log("%s reader %s; parse_s %s; build %s (%.2f s); error %s"
+        % (phase, rd["name"], json.dumps({k: round(v, 3) for k, v in
+                                          rd["parse_s"].items()}),
+           rd["cmd"], rd["build_s"], rd["error"]))
+    if rd["name"] != "native":
+        raise AssertionError("%s: the inputs were not parsed by the native "
+                             "reader (%s)" % (phase, rd["error"]))
+    return rd
+
+
+def kernel_device_ms(argv):
+    """Total device milliseconds per kernel over one more run of `argv`,
+    from torch.profiler's key_averages (fails when it shows none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from longqc_tpu_torch import cli
+
+    with redirect_stdout(io.StringIO()):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cli.main(argv)
+            torch.cuda.synchronize()
+    tot = {}
+    for ev in prof.key_averages():
+        name = next((n for p, n in SYMBOLS.items() if p in ev.key), None)
+        if name:
+            tot[name] = tot.get(name, 0.0) + ev.device_time_total / 1e3
+    if set(tot) != set(MMCOV_KERNELS) or not all(tot.values()):
+        raise AssertionError("the profiler shows no device time for some "
+                             "kernel of the path: %s" % tot)
+    return tot
 
 
 def realistic_mmcov(dev, workdir):
@@ -367,13 +472,14 @@ def realistic_mmcov(dev, workdir):
     log("mmcov wall %.2f s; phase_s %s" % (
         wall, json.dumps({k: round(v, 3)
                           for k, v in stats["phase_s"].items()})))
-    log("step calls %d, retry steps %d, flag counts %s, host-fixed rows "
-        "%d, host-only parts %d" % (
+    log("step calls %d, retry steps %d, F_KERNEL rows %d, flag counts "
+        "%s, host-fixed rows %d, host-only parts %d" % (
             stats["device_calls"], stats["retry_steps"],
-            stats["flag_counts"], stats["host_fixed_rows"],
-            stats["host_only_parts"]))
+            stats["flag_counts"].get("1", 0), stats["flag_counts"],
+            stats["host_fixed_rows"], stats["host_only_parts"]))
     log("kernel launches %s; max_memory_allocated %d bytes (%.2f GB)"
         % (launches, peak_mem, peak_mem / 1e9))
+    check_reader(stats, "phase 5")
     if len(rows) != n_q:
         raise AssertionError("mmcov printed %d rows for %d queries"
                              % (len(rows), n_q))
@@ -381,6 +487,9 @@ def realistic_mmcov(dev, workdir):
         if not launches.get(name):
             raise AssertionError("kernel %s was not launched by the "
                                  "mmcov run" % name)
+    if launches["chain"] != stats["device_calls"]:
+        raise AssertionError("%d step calls but %d B2 launches"
+                             % (stats["device_calls"], launches["chain"]))
     if stats["host_fixed_rows"] > 0.05 * n_q:
         raise AssertionError("host-fixed rows %d exceed 5%% of %d queries"
                              % (stats["host_fixed_rows"], n_q))
@@ -404,7 +513,13 @@ def realistic_mmcov(dev, workdir):
                              "spec (first: query %d)" % (len(bad), bad[0]))
     log("32 sampled rows equal the host spec (host spec %.1f s)"
         % (time.time() - t))
-    return launches
+
+    t = time.time()
+    dev_ms = kernel_device_ms(argv)
+    log("phase 5 device time per kernel (torch.profiler, one more run, "
+        "%.1f s): %s" % (time.time() - t, json.dumps(
+            {k: round(v, 3) for k, v in sorted(dev_ms.items())})))
+    return launches, dev_ms
 
 
 # ---------------------------------------------------------------------------
@@ -499,10 +614,21 @@ def check_extend(dev, B=8192, W=63, zdrop=400):
                                                                    B))
         ms = cuda_ms(lambda: run(m), 3)
         mean_max = float(kern[m]["max"].double().mean())
+        # band cells the data needs: every target column up to the end
+        # (or, Z-dropped, up to the best cell) times the band rows
+        cols = torch.where(kern[m]["zdropped"].bool(),
+                           kern[m]["max_t"].long() + 1, tl.long())
+        rows_b = torch.clamp(ql.long(), max=2 * W + 1)
+        cells = int((cols.clamp(min=0) * rows_b).sum())
+        b_ms, b_by = bound(nbytes(q, ql, tg, tl)
+                           + sum(nbytes(v) for v in kern[m].values()),
+                           cells * OPS_PER_CELL[m])
         log("B5 %s B=%d W=%d zdrop=%d: equal in all 8 outputs (%d "
-            "Z-dropped, mean max %.1f); kernel %.3f ms, plain %.3f ms"
-            % (m, B, W, zdrop, n_drop, mean_max, ms, pms))
-        out[m] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+            "Z-dropped, mean max %.1f); kernel %.3f ms, plain %.3f ms, "
+            "bound %.4f ms (%s, %d band cells)"
+            % (m, B, W, zdrop, n_drop, mean_max, ms, pms, b_ms, b_by, cells))
+        out[m] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                      bound_by=b_by,
                       shape="B=%d L<=%d W=%d" % (B, q.shape[1], W))
 
     # short pairs against the full-DP host reference (numpy loops)
@@ -591,11 +717,12 @@ def hpc_filter_run(dev, workdir):
     log("mmcov -H wall %.2f s; phase_s %s" % (
         wall, json.dumps({k: round(v, 3)
                           for k, v in stats["phase_s"].items()})))
-    log("step calls %d, retry steps %d, flag counts %s, host-fixed rows "
-        "%d, host-only parts %d; kernel launches %s" % (
+    log("step calls %d, retry steps %d, F_KERNEL rows %d, flag counts "
+        "%s, host-fixed rows %d, host-only parts %d; kernel launches %s" % (
             stats["device_calls"], stats["retry_steps"],
-            stats["flag_counts"], stats["host_fixed_rows"],
-            stats["host_only_parts"], launches))
+            stats["flag_counts"].get("1", 0), stats["flag_counts"],
+            stats["host_fixed_rows"], stats["host_only_parts"], launches))
+    check_reader(stats, "phase 7")
     if len(rows) != len(queries):
         raise AssertionError("mmcov -H printed %d rows for %d queries"
                              % (len(rows), len(queries)))
@@ -610,8 +737,9 @@ def hpc_filter_run(dev, workdir):
     n_ctl = len(set(marked) & set(ctl_at))
     log("the filter marks %d queries: %d of the %d control-derived, %d "
         "others" % (len(marked), n_ctl, N_CONTROL, len(marked) - n_ctl))
-    if n_ctl == 0:
-        raise AssertionError("the filter marks no control-derived query")
+    if n_ctl != N_CONTROL or len(marked) != n_ctl:
+        raise AssertionError("the filter must mark the %d control-derived "
+                             "queries and no other" % N_CONTROL)
 
     # every control-derived query and 32 random others against the
     # port's HPC host spec
@@ -659,6 +787,11 @@ def main():
     log("python %s; torch %s; torch.version.cuda %s; nvcc %s; triton %s"
         % (sys.version.split()[0], torch.__version__, torch.version.cuda,
            _ext.nvcc_path(), tri))
+    log("environment CC %r CXX %r CXXFLAGS %r CFLAGS %r; g++ %s" % (
+        os.environ.get("CC"), os.environ.get("CXX"),
+        os.environ.get("CXXFLAGS"), os.environ.get("CFLAGS"),
+        subprocess.run(["g++", "--version"], capture_output=True,
+                       text=True).stdout.splitlines()[0]))
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
@@ -667,6 +800,12 @@ def main():
     mod = _ext.lib(verbose=True)
     log("built %s in %.1f s" % (os.path.relpath(mod.__file__, HERE),
                                 time.time() - t))
+    from longqc_tpu_torch.io import native
+    if not native.available():
+        raise AssertionError("the port's FASTA/FASTQ reader did not build: "
+                             "%s" % native.BUILD["error"])
+    log("built the reader: %s (%.2f s)" % (native.BUILD["cmd"],
+                                          native.BUILD["build_s"]))
 
     # --- phase 3: kernels vs plain versions
     k, w = 12, 5
@@ -680,7 +819,7 @@ def main():
     workdir = tempfile.mkdtemp(prefix="longqc_smoke_")
     try:
         t = time.time()
-        launches = realistic_mmcov(dev, workdir)
+        launches, dev_ms = realistic_mmcov(dev, workdir)
         log("phase 5 %.1f s" % (time.time() - t))
         t = time.time()
         ext_res, ext_launches = check_extend(dev)
@@ -700,7 +839,13 @@ def main():
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep, "launches": launches[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                 "plain_ms": r["plain_ms"], "shape": r["shape"]}
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_us": r["bound_ms"] * 1e3, "bound_by": r["bound_by"],
+                 "library_ms": None, "shape": r["shape"]}
+        if "kernel_alone_ms" in r:
+            entry["kernel_alone_ms"] = r["kernel_alone_ms"]
+        if name in MMCOV_KERNELS:
+            entry["device_ms_phase5"] = dev_ms.get(name, 0.0)
         if name in HPC_KERNELS:
             entry["launches_hpc_filter"] = hpc_launches[name]
         kernels.append(entry)

@@ -22,7 +22,8 @@ def command_mmcov(args):
     from longqc_tpu_torch.config import (FltOpt, IndexOpt, MapOpt,
                                          OverlapConfig, parse_num)
     from longqc_tpu_torch.engine.overlap import overlap_run_device
-    from longqc_tpu_torch.io.fastx import iter_fastx
+    from longqc_tpu_torch.io import native
+    from longqc_tpu_torch.io.fastx import iter_fastx_timed, reader_name
 
     if args.z or args.db:
         raise SystemExit("mmcov -z / -d: not yet ported")
@@ -36,12 +37,19 @@ def command_mmcov(args):
         flt=FltOpt(min_ovlp=args.l, min_coverage=args.c),
         filter_mode=bool(args.filter),
     )
-    targets = ([n, s, q or ""] for n, s, q in iter_fastx(args.target))
-    queries = [[n, s, q or ""] for n, s, q in iter_fastx(args.query)]
+    parse_s = {}
+    targets = ([n, s, q or ""] for n, s, q in
+               iter_fastx_timed(args.target, parse_s, "target"))
+    queries = [[n, s, q or ""] for n, s, q in
+               iter_fastx_timed(args.query, parse_s, "query")]
     stats = {}
     rows = overlap_run_device(targets, queries, cfg, device=args.device,
                               stats=stats)
     sys.stdout.write("\n".join(rows) + "\n")
+    # which FASTA/FASTQ reader parsed the inputs, its build and the
+    # seconds spent inside it per file
+    stats["reader"] = dict(native.BUILD, name=reader_name(),
+                           parse_s=parse_s)
     if args.stats:
         with open(args.stats, "w") as f:
             json.dump(stats, f, indent=1)

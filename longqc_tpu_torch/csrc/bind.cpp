@@ -27,33 +27,31 @@ void check_launch(int code, const char* name) {
 }
 
 void sketch_rows(T codes2, T nmask, T smask, T emask, T starts, T gids,
-                 T emit, T hash, T rid, T pos, T strand, int64_t W,
-                 int64_t k, int64_t w) {
+                 T plan, T emit, T hash, T rid, T pos, T strand, int64_t W,
+                 int64_t k, int64_t w, int64_t CH) {
   const c10::cuda::CUDAGuard guard(codes2.device());
   check_launch(
       lq_sketch_rows(codes2.data_ptr(), nmask.data_ptr(), smask.data_ptr(),
                      emask.data_ptr(), starts.data_ptr(), gids.data_ptr(),
-                     emit.data_ptr(), hash.data_ptr(), rid.data_ptr(),
-                     pos.data_ptr(), strand.data_ptr(), (int)codes2.size(0),
-                     (int)W, (int)k, (int)w, stream_of(codes2)),
+                     plan.data_ptr(), emit.data_ptr(), hash.data_ptr(),
+                     rid.data_ptr(), pos.data_ptr(), strand.data_ptr(),
+                     (int)codes2.size(0), (int)W, (int)k, (int)w, (int)CH,
+                     (int)plan.size(1), stream_of(codes2)),
       "sketch");
 }
 
-void chain_fill(T axh, T axl, T aq, T asp, T nb, T pen, T carry_in,
-                T cflag_in, T f, T p, T v, T carry_out, T cflag_out,
-                int64_t J, int64_t bw, int64_t max_dist, int64_t max_skip,
-                int64_t i0) {
+void chain_fill(T axh, T axl, T aq, T asp, T nb, T pen, T marks, T f, T p,
+                T v, int64_t bw, int64_t max_dist, int64_t max_skip) {
   // one penalty table for every row, or one per row
   const int pen_stride = pen.size(0) == 1 ? 0 : (int)pen.size(1);
   const c10::cuda::CUDAGuard guard(axh.device());
   check_launch(
       lq_chain_fill(axh.data_ptr(), axl.data_ptr(), aq.data_ptr(),
                     asp.data_ptr(), nb.data_ptr(), pen.data_ptr(),
-                    carry_in.data_ptr(), cflag_in.data_ptr(), f.data_ptr(),
-                    p.data_ptr(), v.data_ptr(), carry_out.data_ptr(),
-                    cflag_out.data_ptr(), (int)axh.size(0), (int)axh.size(1),
-                    (int)J, (int)bw, pen_stride, (int)max_dist,
-                    (int)max_skip, (int)i0, stream_of(axh)),
+                    marks.data_ptr(), f.data_ptr(), p.data_ptr(),
+                    v.data_ptr(), (int)axh.size(0), (int)axh.size(1),
+                    (int)bw, pen_stride, (int)max_dist, (int)max_skip,
+                    stream_of(axh)),
       "chain");
 }
 

@@ -1,37 +1,47 @@
-// B2: chain-DP score fill over a J-deep predecessor ring.
+// B2: chain-DP score fill over the whole admissible window.
 //
 // Replaces the Pallas kernel longqc_tpu/ops/chain_pallas.py
-// (_make_kernel / _chain_dp_pallas_t), itself the ring reformulation of
-// mm_chain_dp's fill (chain.c:41-80): per anchor i the last J anchors
-// are scored as predecessors (max_dist / bw gating, gap cost
-// (int)(dd*.01*avg_qspan) + (ilog2(dd)>>1) read from the f64-exact
-// host table gap_penalty_table, one table per row or one for all), the
-// strict running max in age order
-// picks the parent, and the max_skip cut runs the same two bounding
-// passes (marks from every admissible entry, then marks from entries
-// before the first-pass cut). A row is flagged when the passes
-// disagree or when the ring is shorter than the admissible window
-// (trunc); the engine escalates flagged rows to J = 128 / 256 and then
-// to the exact host spec. The ring carry makes calls chunk-resumable.
+// (_make_kernel / _chain_dp_pallas_t), itself a fixed-depth
+// reformulation of mm_chain_dp's fill (chain.c:41-80). This kernel
+// computes the reference fill exactly (engine/overlap_host.chain_dp):
+// for anchor i the predecessors are every earlier anchor j of the row
+// with the same x_hi and 0 <= x_lo[i] - x_lo[j] <= max_dist, scored
+// youngest first (max_dist / bw gating, gap cost (int)(dd*.01*avg_qspan)
+// + (ilog2(dd)>>1) read from the f64-exact host table
+// gap_penalty_table, one table per row or one for all), the strict
+// running max in age order picks the parent, and the scan stops where
+// the max_skip walk breaks. There is no depth limit, so there is no
+// truncation flag and no retry at a deeper limit.
 //
-// Design: one warp per query row. The anchors of a row are a serial
-// recurrence, so the parallelism is across the J ring entries of one
-// anchor: lane l scores ages l+1, l+33, ... (J/32 of them), and every
-// age-ordered scan of the TPU kernel (running max, the skip walk's sum
-// and minimum) is a warp scan by shuffles, chunk by chunk with a
-// carried prefix. Per-age masks are ballots, so the mark words of the
-// max_skip passes are OR-reductions of one word per lane. The ring
-// lives in shared memory as a circular buffer (age a at slot
-// (head + a - 1) mod J, so a push is one write); the row's (bw+1)-entry
-// penalty table sits beside it. Anchors are read 32 at a time, one per
-// lane, and broadcast by shuffle. Layout is (Q, A) row-major; carry is
-// (7, Q, J) in age order plus a (Q,) flag, the same values as the TPU
-// kernel's transposed carry.
+// Design: one warp per query row (one row per block, which also gives
+// each row its own penalty table in shared memory). The anchors of a
+// row are a serial recurrence; the parallelism is across the ages of
+// one anchor's scan, 32 at a time: lane l of chunk c scores age
+// 32c + l + 1. Chunk 0 (ages 1..32) lives in registers, as a window
+// that shifts by one lane per anchor (lane 0 takes the anchor just
+// written). Older chunks read the row's inputs and the kernel's own
+// f / p, written earlier by lane 0 of this warp (ordered by
+// __syncwarp, read through plain loads: no __ldg / const __restrict__
+// on the outputs). The scan stops at the first chunk whose oldest lane
+// is outside the window (rows are sorted by (x_hi, x_lo), so everything
+// older is outside too) or at the max_skip cut, so most anchors pay for
+// one chunk and only repeat-dense windows for more. Every age-ordered scan (running
+// max, the skip walk's sum and minimum) is a warp scan by shuffles with
+// a prefix handed on from chunk to chunk.
 //
-// Bound: the per-anchor dependency chain (shared-memory loads, three to
-// five warp scans of five shuffles), with Q warps in flight: latency,
-// not bytes or operations. One warp per block (one row per block, which
-// also gives each row its own table) spreads the rows over the SMs.
+// max_skip marks: the reference's t[] array, a (Q, A) int32 scratch the
+// kernel fills (t[j] = the anchor that last marked j). Marks from
+// younger lanes onto older lanes of the same chunk are resolved by
+// ballots; marks onto older chunks are written t[p[j]] = i after the
+// chunk's walk. A mark only ever targets an older entry and its value is
+// i, which no later anchor tests, so marks written by entries past the
+// cut are harmless and one pass gives the reference's cut (the TPU
+// kernel's second bounding pass has no counterpart).
+//
+// Bound: the per-anchor dependency chain (one to a few chunks of warp
+// scans of five shuffles, an L1-resident load per older chunk), with Q
+// warps in flight: latency, not bytes or operations. The int64 dr / dq
+// arithmetic is the reference's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,122 +80,91 @@ __device__ __forceinline__ int scan_add(int x, int lane) {
   return x;
 }
 
-// First age (1-based) at which the max_skip walk breaks, else J + 1.
-// Word t bit l of vb / nm / mk stands for age 32t + l + 1.
-template <int J>
-__device__ __forceinline__ int walk_cut(const uint32_t* vb,
-                                        const uint32_t* nm,
-                                        const uint32_t* mk, int max_skip,
-                                        int lane) {
-  constexpr int NW = J / 32;
-  int s_carry = 0, m_carry = 1 << 30;
-#pragma unroll
-  for (int t = 0; t < NW; ++t) {
-    const bool v = (vb[t] >> lane) & 1u;
-    const bool n = (nm[t] >> lane) & 1u;
-    const bool m = (mk[t] >> lane) & 1u;
-    const bool skipev = v && !n && m;
-    const int S = scan_add(skipev ? 1 : (n ? -1 : 0), lane) + s_carry;
-    int mn = scan_min(S, lane);
-    mn = mn < m_carry ? mn : m_carry;
-    const int walk = S - (mn < 0 ? mn : 0);
-    const uint32_t brk = __ballot_sync(LQ_FULL, skipev && walk > max_skip);
-    if (brk) return 32 * t + __ffs(brk);
-    s_carry = __shfl_sync(LQ_FULL, S, 31);
-    m_carry = __shfl_sync(LQ_FULL, mn, 31);
-  }
-  return J + 1;
-}
-
-// Mark words: bit (tgt - 1) for the parent age tgt of every entry of
-// age < lim whose parent lies in the ring (tg[t] = that age, or 0).
-template <int J>
-__device__ __forceinline__ void marks_from(const int* tg, int lim, int lane,
-                                           uint32_t* mk) {
-  constexpr int NW = J / 32;
-#pragma unroll
-  for (int wd = 0; wd < NW; ++wd) {
-    uint32_t mine = 0u;
-#pragma unroll
-    for (int t = 0; t < NW; ++t) {
-      const int g = tg[t] - 1;
-      if (32 * t + lane + 1 < lim && g >= 0 && (g >> 5) == wd)
-        mine |= 1u << (g & 31);
-    }
-    mk[wd] = __reduce_or_sync(LQ_FULL, mine);
-  }
-}
-
 }  // namespace
 
-template <int J>
 __global__ void lq_chain_fill_kernel(
     const int32_t* __restrict__ axh, const int32_t* __restrict__ axl,
     const int32_t* __restrict__ aq, const int32_t* __restrict__ asp,
     const int32_t* __restrict__ nb, const int32_t* __restrict__ pen_g,
-    const int32_t* __restrict__ carry_in,
-    const int32_t* __restrict__ cflag_in, int32_t* __restrict__ of,
-    int32_t* __restrict__ op, int32_t* __restrict__ ov,
-    int32_t* __restrict__ carry_out, int32_t* __restrict__ cflag_out, int Q,
-    int A, int bw, int pen_stride, int max_dist, int max_skip, int i0) {
-  constexpr int NW = J / 32;
-  // one warp, so one query row, per block
+    int32_t* tmark, int32_t* of, int32_t* op, int32_t* ov, int Q, int A,
+    int bw, int pen_stride, int max_dist, int max_skip) {
   const int row = blockIdx.x;
   if (row >= Q) return;
-  extern __shared__ int32_t smem[];
-  int32_t* pen = smem;
+  extern __shared__ int32_t pen[];
   const int32_t* pen_row = pen_g + (size_t)row * pen_stride;
   const int lane = threadIdx.x;
   for (int t = lane; t <= bw; t += 32) pen[t] = pen_row[t];
-  int32_t* ring = smem + ((bw + 4) & ~3);
-  int32_t* rxh = ring;
-  int32_t* rxl = ring + J;
-  int32_t* rq = ring + 2 * J;
-  int32_t* rs = ring + 3 * J;
-  int32_t* rf = ring + 4 * J;
-  int32_t* rv = ring + 5 * J;
-  int32_t* rp = ring + 6 * J;
+
+  const size_t ab = (size_t)row * A;
+  const int32_t* rxh = axh + ab;
+  const int32_t* rxl = axl + ab;
+  const int32_t* rq = aq + ab;
+  int32_t* rt = tmark + ab;
+  int32_t* rf = of + ab;
+  int32_t* rp = op + ab;
+  int32_t* rv = ov + ab;
+  const int n = min(nb[row], A);
+  for (int a = lane; a < A; a += 32) {
+    rt[a] = -1;
+    if (a >= n) {
+      rf[a] = 0;
+      rp[a] = -1;
+      rv[a] = 0;
+    }
+  }
   __syncwarp();
 
-  const size_t QJ = (size_t)Q * J;
-  const size_t rb = (size_t)row * J;
-  for (int a = lane; a < J; a += 32)
-    for (int c = 0; c < 7; ++c) ring[c * J + a] = carry_in[c * QJ + rb + a];
-  __syncwarp();
-  int head = 0;  // slot of age 1
-  int flag = cflag_in[row];
-  const int n = nb[row];
-  const size_t ab = (size_t)row * A;
+  // chunk 0 in registers: lane l holds age l + 1 (entry i - 1 - l)
+  int cxh = -1, cxl = 0, cq = 0, cf = 0, cp = -1, cv = 0;
   int pxh = 0, pxl = 0, pq = 0, ps = 0;
 
-  for (int li = 0; li < A; ++li) {
-    const int src = li & 31;
-    if (src == 0 && li + lane < A) {
-      pxh = axh[ab + li + lane];
-      pxl = axl[ab + li + lane];
-      pq = aq[ab + li + lane];
-      ps = asp[ab + li + lane];
+  for (int i = 0; i < n; ++i) {
+    const int src = i & 31;
+    if (src == 0 && i + lane < n) {
+      pxh = rxh[i + lane];
+      pxl = rxl[i + lane];
+      pq = rq[i + lane];
+      ps = asp[ab + i + lane];
     }
     const int xh = __shfl_sync(LQ_FULL, pxh, src);
     const int xl = __shfl_sync(LQ_FULL, pxl, src);
     const int qi = __shfl_sync(LQ_FULL, pq, src);
     const int si = __shfl_sync(LQ_FULL, ps, src);
-    const int i = i0 + li;
-    const bool row_on = i < n;
 
-    int scv[NW], tg[NW];
-    uint32_t vb[NW], nm[NW];
-    int run = LQ_NEG;  // max of sc over the younger chunks
-    bool oldest_ok = false;
-#pragma unroll
-    for (int t = 0; t < NW; ++t) {
-      const int a = 32 * t + lane + 1;
-      const int s = (head + a - 1) & (J - 1);
-      const bool exists = i - a >= 0;
-      const long long dr = (long long)xl - rxl[s];
-      const bool dr_ok = xh == rxh[s] && dr >= 0 && dr <= max_dist;
-      const long long dq = (long long)qi - rq[s];
-      bool valid = exists && dr_ok && dr != 0 && dq > 0 && dq <= max_dist;
+    int run = si;          // running max (max_f), from the initial q_span
+    int s_prev = 0, m_prev = 0;   // skip walk: sum, min prefix (<= 0)
+    int best_sc = si, best_age = 0, best_v = 0;
+    for (int c = 0;; ++c) {
+      const int age = 32 * c + lane + 1;
+      const int j = i - age;
+      int exh, exl, eq, ef, ep, ev;
+      bool marked;
+      if (c == 0) {
+        exh = cxh;
+        exl = cxl;
+        eq = cq;
+        ef = cf;
+        ep = cp;
+        ev = cv;
+        marked = false;  // anchor i has written no mark yet
+      } else if (j >= 0) {
+        exh = rxh[j];
+        exl = rxl[j];
+        eq = rq[j];
+        ef = rf[j];
+        ep = rp[j];
+        ev = 0;
+        marked = rt[j] == i;
+      } else {
+        exh = -1;
+        exl = eq = ef = ev = 0;
+        ep = -1;
+        marked = false;
+      }
+      const long long dr = (long long)xl - exl;
+      const bool in_win = j >= 0 && exh == xh && dr >= 0 && dr <= max_dist;
+      const long long dq = (long long)qi - eq;
+      bool valid = in_win && dr != 0 && dq > 0 && dq <= max_dist;
       int sc = LQ_NEG;
       if (valid) {
         const long long dd = dr > dq ? dr - dq : dq - dr;
@@ -193,7 +172,7 @@ __global__ void lq_chain_fill_kernel(
         if (valid) {
           int m = (int)(dq < dr ? dq : dr);
           m = m < si ? m : si;
-          sc = m - pen[(int)dd] + rf[s];
+          sc = m - pen[(int)dd] + ef;
         }
       }
       // strict running max in age order, exclusive prefix
@@ -201,133 +180,92 @@ __global__ void lq_chain_fill_kernel(
       int before = __shfl_up_sync(LQ_FULL, incl, 1);
       if (lane == 0) before = LQ_NEG;
       before = before > run ? before : run;
-      before = before > si ? before : si;
       const bool newmax = valid && sc > before;
       const int tot = __shfl_sync(LQ_FULL, incl, 31);
       run = tot > run ? tot : run;
-      scv[t] = sc;
-      vb[t] = __ballot_sync(LQ_FULL, valid);
-      nm[t] = __ballot_sync(LQ_FULL, newmax);
-      const int pa = rp[s];
-      const int tgt = i - pa;
-      tg[t] = (valid && pa > LQ_NEG + J + 1 && tgt >= 1 && tgt <= J) ? tgt : 0;
-      if (t == NW - 1)
-        oldest_ok = (__ballot_sync(LQ_FULL, exists && dr_ok) >> 31) & 1u;
+
+      // marks from younger lanes of this chunk (valid entries' parents)
+      const int tl = (i - ep) - 32 * c - 1;  // parent's lane in this chunk
+      const bool mk_src = valid && ep >= 0;
+      const uint32_t in_chunk = __reduce_or_sync(
+          LQ_FULL, (mk_src && tl > lane && tl < 32) ? (1u << tl) : 0u);
+      marked = marked || ((in_chunk >> lane) & 1u);
+
+      // the max_skip walk: n_skip = S - min(0, min prefix of S)
+      const bool skipev = valid && !newmax && marked;
+      const int S = scan_add(skipev ? 1 : (newmax ? -1 : 0), lane) + s_prev;
+      int mn = scan_min(S, lane);
+      mn = mn < m_prev ? mn : m_prev;
+      const int walk = S - (mn < 0 ? mn : 0);
+      const uint32_t brk = __ballot_sync(LQ_FULL, skipev && walk > max_skip);
+
+      // parent: the oldest new maximum before the cut (the highest score)
+      uint32_t nm = __ballot_sync(LQ_FULL, newmax);
+      if (brk) nm &= (1u << (__ffs(brk) - 1)) - 1u;
+      if (nm) {
+        const int pl = 31 - __clz(nm);
+        best_sc = __shfl_sync(LQ_FULL, sc, pl);
+        best_v = __shfl_sync(LQ_FULL, ev, pl);
+        best_age = 32 * c + pl + 1;
+      }
+      const bool more =
+          !brk && ((__ballot_sync(LQ_FULL, in_win) >> 31) & 1u);
+      if (more) {
+        // marks onto older chunks, read by the next chunks' lanes
+        if (mk_src && tl >= 32) rt[ep] = i;
+        s_prev = __shfl_sync(LQ_FULL, S, 31);
+        m_prev = __shfl_sync(LQ_FULL, mn, 31);
+        m_prev = m_prev < 0 ? m_prev : 0;
+        __syncwarp();
+      } else {
+        break;
+      }
     }
 
-    // max_skip bounding: two passes (marks from all admissible
-    // entries, then from entries before the first cut; the second pass
-    // repeats the first when the first did not cut)
-    uint32_t mk[NW];
-    marks_from<J>(tg, J + 1, lane, mk);
-    const int cut0 = walk_cut<J>(vb, nm, mk, max_skip, lane);
-    int cut1 = cut0;
-    if (cut0 <= J) {
-      marks_from<J>(tg, cut0, lane, mk);
-      cut1 = walk_cut<J>(vb, nm, mk, max_skip, lane);
-    }
-
-    // parent: the oldest new maximum (so the highest score) at age <= cut1
-    int p_age = 0;
-#pragma unroll
-    for (int t = NW - 1; t >= 0; --t) {
-      const int keep = cut1 - 32 * t;  // ages 32t+1 .. 32t+keep allowed
-      uint32_t m = nm[t];
-      if (keep <= 0) m = 0u;
-      else if (keep < 32) m &= (1u << keep) - 1u;
-      if (p_age == 0 && m) p_age = 32 * t + 32 - __clz(m);
-    }
-    const bool has_pred = p_age > 0;
-    int mine = LQ_NEG;
-#pragma unroll
-    for (int t = 0; t < NW; ++t)
-      if (has_pred && t == ((p_age - 1) >> 5)) mine = scv[t];
-    const int sc_p = __shfl_sync(LQ_FULL, mine, (p_age - 1) & 31);
-    const int f_i = has_pred ? sc_p : si;
-    const int p_abs = has_pred ? i - p_age : LQ_NEG;
-    const int v_pred = has_pred ? rv[(head + p_age - 1) & (J - 1)] : LQ_NEG;
+    const bool has_pred = best_age > 0;
+    const int f_i = best_sc;
+    const int p_i = has_pred ? i - best_age : -1;
+    int v_pred = best_v;
+    if (has_pred && best_age > 32) v_pred = rv[p_i];
     const int v_i = (has_pred && v_pred > f_i) ? v_pred : f_i;
-    const bool trunc = cut1 > J && oldest_ok;
-    if (row_on && (cut0 != cut1 || trunc)) flag = 1;
 
-    // push: the new entry takes the oldest entry's slot
-    __syncwarp();
-    head = (head + J - 1) & (J - 1);
+    // shift the register chunk by one age; lane 0 takes anchor i
+    cxh = __shfl_up_sync(LQ_FULL, cxh, 1);
+    cxl = __shfl_up_sync(LQ_FULL, cxl, 1);
+    cq = __shfl_up_sync(LQ_FULL, cq, 1);
+    cf = __shfl_up_sync(LQ_FULL, cf, 1);
+    cp = __shfl_up_sync(LQ_FULL, cp, 1);
+    cv = __shfl_up_sync(LQ_FULL, cv, 1);
     if (lane == 0) {
-      rxh[head] = xh;
-      rxl[head] = xl;
-      rq[head] = qi;
-      rs[head] = si;
-      rf[head] = f_i;
-      rv[head] = v_i;
-      rp[head] = p_abs;
-      of[ab + li] = row_on ? f_i : 0;
-      op[ab + li] = row_on ? (p_abs > -1 ? p_abs : -1) : -1;
-      ov[ab + li] = row_on ? v_i : 0;
+      cxh = xh;
+      cxl = xl;
+      cq = qi;
+      cf = f_i;
+      cp = p_i;
+      cv = v_i;
+      rf[i] = f_i;
+      rp[i] = p_i;
+      rv[i] = v_i;
     }
     __syncwarp();
   }
-  for (int a = lane; a < J; a += 32) {
-    const int s = (head + a) & (J - 1);
-    for (int c = 0; c < 7; ++c) carry_out[c * QJ + rb + a] = ring[c * J + s];
-  }
-  if (lane == 0) cflag_out[row] = flag;
-}
-
-// shared memory of one block: the row's penalty table (padded to 4
-// words) plus its 7 x J ring
-static size_t lq_chain_smem(int J, int bw) {
-  return ((size_t)((bw + 4) & ~3) + (size_t)7 * J) * sizeof(int32_t);
-}
-
-template <int J>
-static int lq_chain_launch(const void* axh, const void* axl, const void* aq,
-                           const void* asp, const void* nb, const void* pen,
-                           const void* carry_in, const void* cflag_in,
-                           void* of, void* op, void* ov, void* carry_out,
-                           void* cflag_out, int Q, int A, int bw,
-                           int pen_stride, int max_dist, int max_skip,
-                           int i0, cudaStream_t st) {
-  const size_t smem = lq_chain_smem(J, bw);
-  cudaError_t e = cudaFuncSetAttribute(
-      lq_chain_fill_kernel<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  lq_chain_fill_kernel<J><<<Q, 32, smem, st>>>(
-      (const int32_t*)axh, (const int32_t*)axl, (const int32_t*)aq,
-      (const int32_t*)asp, (const int32_t*)nb, (const int32_t*)pen,
-      (const int32_t*)carry_in, (const int32_t*)cflag_in, (int32_t*)of,
-      (int32_t*)op, (int32_t*)ov, (int32_t*)carry_out, (int32_t*)cflag_out,
-      Q, A, bw, pen_stride, max_dist, max_skip, i0);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int lq_chain_fill(const void* axh, const void* axl, const void* aq,
                              const void* asp, const void* nb, const void* pen,
-                             const void* carry_in, const void* cflag_in,
-                             void* of, void* op, void* ov, void* carry_out,
-                             void* cflag_out, int Q, int A, int J, int bw,
-                             int pen_stride, int max_dist, int max_skip,
-                             int i0, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+                             void* tmark, void* of, void* op, void* ov, int Q,
+                             int A, int bw, int pen_stride, int max_dist,
+                             int max_skip, void* stream) {
   if (Q <= 0) return 0;
-  switch (J) {
-    case 64:
-      return lq_chain_launch<64>(axh, axl, aq, asp, nb, pen, carry_in,
-                                 cflag_in, of, op, ov, carry_out, cflag_out, Q,
-                                 A, bw, pen_stride, max_dist, max_skip, i0,
-                                 st);
-    case 128:
-      return lq_chain_launch<128>(axh, axl, aq, asp, nb, pen, carry_in,
-                                  cflag_in, of, op, ov, carry_out, cflag_out,
-                                  Q, A, bw, pen_stride, max_dist, max_skip,
-                                  i0, st);
-    case 256:
-      return lq_chain_launch<256>(axh, axl, aq, asp, nb, pen, carry_in,
-                                  cflag_in, of, op, ov, carry_out, cflag_out,
-                                  Q, A, bw, pen_stride, max_dist, max_skip,
-                                  i0, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const size_t smem = (size_t)(bw + 1) * sizeof(int32_t);
+  cudaError_t e = cudaFuncSetAttribute(
+      lq_chain_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  lq_chain_fill_kernel<<<Q, 32, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)axh, (const int32_t*)axl, (const int32_t*)aq,
+      (const int32_t*)asp, (const int32_t*)nb, (const int32_t*)pen,
+      (int32_t*)tmark, (int32_t*)of, (int32_t*)op, (int32_t*)ov, Q, A, bw,
+      pen_stride, max_dist, max_skip);
+  return (int)cudaGetLastError();
 }

@@ -11,15 +11,15 @@ extern "C" {
 
 int lq_sketch_rows(const void* codes2, const void* nmask, const void* smask,
                    const void* emask, const void* starts, const void* gids,
-                   void* emit, void* hash, void* rid, void* pos, void* strand,
-                   int R, int W, int k, int w, void* stream);
+                   const void* plan, void* emit, void* hash, void* rid,
+                   void* pos, void* strand, int R, int W, int k, int w,
+                   int CH, int NC, void* stream);
 
 int lq_chain_fill(const void* axh, const void* axl, const void* aq,
                   const void* asp, const void* nb, const void* pen,
-                  const void* carry_in, const void* cflag_in, void* of,
-                  void* op, void* ov, void* carry_out, void* cflag_out, int Q,
-                  int A, int J, int bw, int pen_stride, int max_dist,
-                  int max_skip, int i0, void* stream);
+                  void* tmark, void* of, void* op, void* ov, int Q, int A,
+                  int bw, int pen_stride, int max_dist, int max_skip,
+                  void* stream);
 
 int lq_peak_pass(const void* f, const void* v, const void* p, void* peak,
                  int Q, int A, int J, void* stream);

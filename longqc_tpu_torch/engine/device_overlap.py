@@ -26,13 +26,14 @@ fill and the accounting with per-anchor spans.
 
 Exactness contract: rows are bit-identical to engine/overlap_host.
 Whatever the device math cannot reproduce exactly raises a per-(row,
-part) flag: chain-fill ring truncation or max_skip disagreement
-(F_KERNEL, retried at J = 128 and 256 first), m_cnts approaching uint16
-saturation (F_SAT), more accepted chains than CV (F_CV), anchors past
-the top rung (F_ANCH), expansion overflow (F_EXP). A flagged row's
-state update is discarded and recomputed by the host spec for that
-part. The overhang-ratio test is the literal f64 comparison, so the
-JAX package's F_GEOM never fires here.
+part) flag: m_cnts approaching uint16 saturation (F_SAT), more accepted
+chains than CV (F_CV), anchors past the top rung (F_ANCH, retried at a
+bigger rung first), expansion overflow (F_EXP). A flagged row's state
+update is discarded and recomputed by the host spec for that part. The
+chain fill scans each anchor's whole admissible window (B2), so the
+JAX package's F_KERNEL (ring truncation, retried at J = 128 / 256)
+never fires here; the overhang-ratio test is the literal f64
+comparison, so neither does its F_GEOM.
 
 Shapes follow the JAX engine (GROUP_Q, the _len_bucket query buckets,
 the anchor rungs, CV/EOUT/EV_B) so the parity tests compare
@@ -57,7 +58,7 @@ import torch
 from longqc_tpu_torch.config import OverlapConfig
 from longqc_tpu_torch.engine import device_index as di
 from longqc_tpu_torch.engine import overlap_host as oh
-from longqc_tpu_torch.ops.chain import gap_penalty_table, make_carry
+from longqc_tpu_torch.ops.chain import gap_penalty_table
 from longqc_tpu_torch.ops._ext import require_device
 from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill
 from longqc_tpu_torch.ops.ringprop import INF32, minrank_pass, peak_pass
@@ -69,7 +70,6 @@ from longqc_tpu_torch.ops.sketch_hpc import (hpc_compress, pack_hpc,
 logger = getLogger(__name__)
 
 GROUP_Q = 128          # query lanes per step call
-J = 64                 # chain-fill ring depth (escalates to 128, 256)
 CV = 512               # max accepted chains per (row, part) call
 EOUT = 4 * CV          # max emitted interval events per call
 EV_B = 8192            # cross-row compacted event budget per pull
@@ -83,8 +83,8 @@ A_LADDER = (1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072, 262144)
 # bits
 B_PADS = (8192, 1 << 17, 1 << 21, 1 << 24)
 
-# flag bits (per row, per call)
-F_KERNEL = 1           # chain fill truncation / max_skip disagreement
+# flag bits (per row, per call); 1 is the JAX package's F_KERNEL
+# (chain-ring truncation), which cannot fire here
 F_SAT = 2              # m_cnts approaching uint16 saturation
 F_CV = 4               # more accepted chains than CV
 # (8 is the JAX package's F_GEOM, which cannot fire here)
@@ -114,7 +114,6 @@ class StepStatic:
     covt: int
     ava: bool
     min_ratio: float
-    jring: int = J      # chain-fill ring depth (64; 128/256 on F_KERNEL)
 
 
 def _ar(n, like):
@@ -318,21 +317,20 @@ def _collect_anchors(irid, ips, rid_rank, mid_occ, left_slot, occ_slot,
 def _run_dp(key1, key2, yq, span_s, n_anch, pen_tab, st: StepStatic):
     """B2 chain fill + B3 peak pass over the sorted anchors. span_s:
     per-anchor spans (None = plain mode, span == k); pen_tab: (1, bw+1)
-    or one gap-penalty table per row (Q, bw+1). Ring depth st.jring: 64
-    in steady state, 128 / 256 on the F_KERNEL retries."""
+    or one gap-penalty table per row (Q, bw+1). A parent may lie any
+    distance back, so the peak pass runs with no window limit (J = A)."""
     Q, A = key1.shape
-    ring, cflag = make_carry(Q, st.jring, device=key1.device)
     span = span_s
     if span is None:
         span = torch.full((Q, A), st.k, dtype=_I32, device=key1.device)
-    f, p, v, kflag, _carry = chain_dp_fill(
-        key1, key2, yq, span, n_anch, pen_tab, (ring, cflag), 0,
-        J=st.jring, max_dist=st.max_gap, bw=st.bw, max_skip=st.max_skip)
-    peak = peak_pass(f, v, p, J=st.jring)
-    return f, p, v, peak, kflag
+    f, p, v = chain_dp_fill(key1, key2, yq, span, n_anch, pen_tab,
+                            max_dist=st.max_gap, bw=st.bw,
+                            max_skip=st.max_skip)
+    peak = peak_pass(f, v, p, J=A)
+    return f, p, v, peak
 
 
-def _post_dp(key1, key2, yq, js_s, span_s, f, p, v, peak, kflag, n_anch,
+def _post_dp(key1, key2, yq, js_s, span_s, f, p, v, peak, n_anch,
              n_q, n_kept, seq_lens, qlen, qvalid, n_exp, lam, lam2,
              avgk_set, m_cnts, st: StepStatic):
     """Chain selection, reg geometry, coverage accounting and interval
@@ -366,7 +364,7 @@ def _post_dp(key1, key2, yq, js_s, span_s, f, p, v, peak, kflag, n_anch,
     own = _scatter_reduce(Q, A, INF32, peak_it,
                           torch.where(is_new, rank_it, INF32), "amin")
 
-    mr = minrank_pass(p, own, J=st.jring)
+    mr = minrank_pass(p, own, J=A)
     mr = torch.where(anch_on, mr, INF32)
 
     # --- segment chains in (min-rank, idx) order; the stable sort keeps
@@ -503,8 +501,7 @@ def _post_dp(key1, key2, yq, js_s, span_s, f, p, v, peak, kflag, n_anch,
     events, _, ev_n = _compact_rows(cand, (), EOUT, INF32)
 
     # --- commit (flagged rows keep their old state)
-    new_flags = (torch.where(kflag, F_KERNEL, 0)
-                 | torch.where(flag_sat, F_SAT, 0)
+    new_flags = (torch.where(flag_sat, F_SAT, 0)
                  | torch.where(flag_cv, F_CV, 0)
                  | torch.where(n_q > A, F_ANCH, 0)
                  | torch.where(n_exp > M2, F_EXP, 0)).to(_I32)
@@ -538,11 +535,10 @@ def _step_impl(irid, ips, seq_lens, rid_rank, mid_occ, left_slot,
         _collect_anchors(irid, ips, rid_rank, mid_occ, left_slot,
                          occ_slot, qps, qcnt, n_slots, qlen, qrank, qbisect,
                          st)
-    f, p, v, peak, kflag = _run_dp(key1, key2, yq, None, n_anch, pen_tab,
-                                   st)
-    out = _post_dp(key1, key2, yq, js_s, None, f, p, v, peak, kflag,
-                   n_anch, n_q, n_kept, seq_lens, qlen, qvalid, n_exp, lam,
-                   lam2, avgk_set, m_cnts, st)
+    f, p, v, peak = _run_dp(key1, key2, yq, None, n_anch, pen_tab, st)
+    out = _post_dp(key1, key2, yq, js_s, None, f, p, v, peak, n_anch, n_q,
+                   n_kept, seq_lens, qlen, qvalid, n_exp, lam, lam2,
+                   avgk_set, m_cnts, st)
     return out[:6]
 
 
@@ -571,12 +567,11 @@ def _step_hpc_b(anchors, seq_lens, qlen, qvalid, n_exp, lam, lam2,
     is processed. Returns (lam, lam2, avgk_set, avgk_val, m_cnts,
     packed pull, events)."""
     key1, key2, yq, js_s, span_s, n_anch, n_q, n_kept = anchors
-    f, p, v, peak, kflag = _run_dp(key1, key2, yq, span_s, n_anch, pen_tab,
-                                   st)
+    f, p, v, peak = _run_dp(key1, key2, yq, span_s, n_anch, pen_tab, st)
     (lam_n, lam2_n, avgk_n, mc, packed_small, events, proc,
      new_flags) = _post_dp(key1, key2, yq, js_s, span_s, f, p, v, peak,
-                           kflag, n_anch, n_q, n_kept, seq_lens, qlen,
-                           qvalid, n_exp, lam, lam2, avgk_set, m_cnts, st)
+                           n_anch, n_q, n_kept, seq_lens, qlen, qvalid,
+                           n_exp, lam, lam2, avgk_set, m_cnts, st)
     set_now = proc & (n_kept > 0) & (avgk_set == 0) & (new_flags == 0)
     avgk_val_n = torch.where(set_now, kept_avg, avgk_val)
     return lam_n, lam2_n, avgk_n, avgk_val_n, mc, packed_small, events
@@ -643,7 +638,7 @@ def _compact_sketch_hpc(emit, hsh, pos, strand, *, M):
     return qh, qpos, qstrand, qspan, qcnt, n
 
 
-def _make_static(cfg, M, M2, A, k, jring=J):
+def _make_static(cfg, M, M2, A, k):
     m = cfg.map
     f = cfg.flt
     return StepStatic(
@@ -652,8 +647,7 @@ def _make_static(cfg, M, M2, A, k, jring=J):
         min_cnt=m.min_cnt, min_sc=m.min_chain_score,
         min_sc_m=m.min_score_med, min_sc_g=m.min_score_good,
         max_overhang=f.max_overhang, min_cov=f.min_coverage,
-        covt=cfg.covt, ava=cfg.ava, min_ratio=float(f.min_ratio),
-        jring=jring)
+        covt=cfg.covt, ava=cfg.ava, min_ratio=float(f.min_ratio))
 
 
 def _len_bucket(n):
@@ -917,8 +911,8 @@ class DeviceOverlapEngine:
             self.phase_s["stage"] += time.time() - t0
         return self._groups
 
-    def _static(self, g, A, jring=J):
-        return _make_static(self.cfg, g.M, g.M2, A, self.k, jring=jring)
+    def _static(self, g, A):
+        return _make_static(self.cfg, g.M, g.M2, A, self.k)
 
     def run(self, target_iter):
         """Part loop: build each part's index, run every query group
@@ -937,12 +931,12 @@ class DeviceOverlapEngine:
         self.phase_s["finalize"] += time.time() - t0
         return rows
 
-    def _step_group(self, g, pidx, qrank_d, qbisect_d, qvalid, A, left, occ,
-                    jring=J):
+    def _step_group(self, g, pidx, qrank_d, qbisect_d, qvalid, A, left,
+                    occ):
         """One (part x group) step at anchor rung A; left/occ are the
         count pass's seed-lookup tables. Returns (packed_small,
         events_full)."""
-        st = self._static(g, A, jring=jring)
+        st = self._static(g, A)
         if self.hpc:
             return self._step_group_hpc(g, pidx, qrank_d, qbisect_d, qvalid,
                                         st, left, occ)
@@ -1020,16 +1014,15 @@ class DeviceOverlapEngine:
                 if flags_np[r] or g.perm_host[r] or r in forced]
 
     def _retry(self, g, pidx, qrank_d, qbisect_d, rows, flags_np, ev_rows,
-               A, left, occ, jring=J):
-        """Re-run `rows` alone at rung A / ring depth jring; returns the
-        rows still needing work."""
+               A, left, occ):
+        """Re-run `rows` alone at rung A; returns the rows still needing
+        work."""
         t0 = time.time()
         qv = np.zeros(self.lanes, np.int32)
         qv[rows] = 1
         small2, full2 = self._step_group(
             g, pidx, qrank_d, qbisect_d,
-            torch.from_numpy(qv).to(self.device), A, left, occ,
-            jring=jring)
+            torch.from_numpy(qv).to(self.device), A, left, occ)
         self.n_retry_steps += 1
         flags2, ev_rows2 = self._unpack_pull(small2.cpu().numpy(), full2)
         for r in rows:
@@ -1040,9 +1033,8 @@ class DeviceOverlapEngine:
 
     def _run_part(self, pidx):
         """All query groups against one part: count pass -> step at the
-        smallest fitting rung; F_ANCH rows retry at bigger rungs,
-        F_KERNEL rows at J = 128 then 256, and whatever remains flagged
-        is recomputed exactly on the host."""
+        smallest fitting rung; F_ANCH rows retry at bigger rungs, and
+        whatever remains flagged is recomputed exactly on the host."""
         if pidx.host_only:
             self.n_host_only_parts += 1
             logger.warning("part exceeds the device-index ceiling; "
@@ -1107,17 +1099,6 @@ class DeviceOverlapEngine:
                 bad = [r for r in bad if r not in retry] + self._retry(
                     g, pidx, qrank_d, qbisect_d, retry, flags_np, ev_rows,
                     A, left, occ)
-            # F_KERNEL escalation: rows whose J=64 predecessor ring
-            # truncated (repeat-dense anchor runs) retry at J=128 then
-            # J=256 before the host fallback
-            for jring in (2 * J, 4 * J):
-                retry = [r for r in bad
-                         if flags_np[r] == F_KERNEL and not g.perm_host[r]]
-                if not retry:
-                    break
-                bad = [r for r in bad if r not in retry] + self._retry(
-                    g, pidx, qrank_d, qbisect_d, retry, flags_np, ev_rows,
-                    rung, left, occ, jring=jring)
             for r in bad:
                 if flags_np[r]:
                     self.flag_counts[int(flags_np[r])] += 1

@@ -218,12 +218,20 @@ def chain_dp(ax, ay, max_dist, bw, max_skip, min_cnt, min_sc):
     """-> list of chains [(score, anchor_index_array)], anchors in
     query-ascending order within each chain; backtrack ownership follows
     the reference's (score desc, end-index desc) greedy order."""
-    n = len(ax)
-    if n == 0:
+    if len(ax) == 0:
         return []
-    # avg_qspan over all anchors (float32 in C is float; C uses float avg_qspan)
+    f, p, v = chain_fill(ax, ay, max_dist, bw, max_skip)
+    return chain_backtrack(f, p, v, min_cnt, min_sc)
+
+
+def chain_fill(ax, ay, max_dist, bw, max_skip, avg_qspan=None):
+    """The score fill of chain.c:41-80 -> (f, p, v) per anchor (p the
+    predecessor index or -1). avg_qspan: the gap cost's mean span; by
+    default the mean anchor span (a C float, as chain.c computes it)."""
+    n = len(ax)
     spans = ((ay >> np.uint64(32)) & np.uint64(0xFF)).astype(np.int64)
-    avg_qspan = np.float32(spans.sum() / n)
+    if avg_qspan is None:
+        avg_qspan = np.float32(spans.sum() / n)
 
     f = np.zeros(n, np.int32)
     p = np.full(n, -1, np.int64)
@@ -277,9 +285,14 @@ def chain_dp(ax, ay, max_dist, bw, max_skip, min_cnt, min_sc):
         f[i] = max_f
         p[i] = max_j
         v[i] = v[max_j] if (max_j >= 0 and v[max_j] > max_f) else max_f
+    return f, p, v
 
-    # chain end detection
-    t[:] = 0
+
+def chain_backtrack(f, p, v, min_cnt, min_sc):
+    """Chains of a filled row (chain.c:82-157): end detection, the
+    (score, end) order and the greedy backtrack with anchor ownership."""
+    n = len(f)
+    t = np.zeros(n, np.int64)
     for i in range(n):
         if p[i] >= 0:
             t[p[i]] = 1

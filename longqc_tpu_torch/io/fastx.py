@@ -10,13 +10,15 @@ format codes, chunk-size accounting via `sys.getsizeof` of the three
 strings (chunk boundaries feed the per-chunk seeded reservoir sampler,
 so the accounting must match exactly), and cumulative n_seqs/n_bases.
 
-No pysam dependency: FASTA/FASTQ parsing is done natively (with a
-C-accelerated reader in native/ when built) and BAM via io/bam.py.
+No pysam dependency: FASTA/FASTQ parsing is done natively (the port's
+C++ reader, csrc/fastx_native.cpp, built by io/native.py) and BAM via
+io/bam.py.
 """
 
 import gzip
 import os
 import sys
+import time
 from logging import getLogger
 
 logger = getLogger(__name__)
@@ -104,14 +106,35 @@ def iter_fastx(fn):
 
     Name is the first whitespace-delimited token (kseq semantics).
     Multi-line FASTA is supported; FASTQ is strict 4-line (universal for
-    long-read data). Uses the native C++ reader when built
-    (io/native.py), else the pure-Python lexer below.
+    long-read data). Uses the native C++ reader (io/native.py), or the
+    pure-Python lexer below when it could not be built (reader_name()
+    says which, and io/native.BUILD why).
     """
     from longqc_tpu_torch.io import native as _native
     if _native.available():
         yield from _native.iter_fastx_native(fn)
         return
     yield from _iter_fastx_py(fn)
+
+
+def reader_name():
+    """The reader iter_fastx uses: "native" or "python"."""
+    from longqc_tpu_torch.io import native as _native
+    return "native" if _native.available() else "python"
+
+
+def iter_fastx_timed(fn, clock, key):
+    """iter_fastx(fn), adding the seconds spent inside the reader to
+    clock[key]."""
+    clock.setdefault(key, 0.0)
+    it = iter_fastx(fn)
+    while True:
+        t0 = time.perf_counter()
+        rec = next(it, None)
+        clock[key] += time.perf_counter() - t0
+        if rec is None:
+            return
+        yield rec
 
 
 def _iter_fastx_py(fn):

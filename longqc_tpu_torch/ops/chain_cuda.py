@@ -4,11 +4,13 @@
 port of longqc_tpu/ops/chain_pallas.chain_dp_batch_pallas) and runs the
 plain version ops/chain.chain_dp_batch on CPU tensors; both have the
 same contract (see there). Differences from the TPU kernel's contract:
-the layout is (Q, A) row-major, the carry is (7, Q, J) + (Q,), and the
-gap cost comes from f64-exact tables (one per row, (Q, bw+1), or one
-for every row, (1, bw+1)) instead of per-row fixed-point limbs, so
-there is no per-row "no exact multiplier" flag and bw is bounded only
-by the shared memory that holds the table beside the ring (MAX_BW).
+the layout is (Q, A) row-major; every anchor scans its whole admissible
+window, so there is no ring depth J, no truncation or max_skip
+disagreement flag, no carry and no chunk offset; and the gap cost comes
+from f64-exact tables (one per row, (Q, bw+1), or one for every row,
+(1, bw+1)) instead of per-row fixed-point limbs, so there is no per-row
+"no exact multiplier" flag and bw is bounded only by the shared memory
+that holds the table (MAX_BW).
 """
 
 import torch
@@ -16,40 +18,29 @@ import torch
 from longqc_tpu_torch.ops import _ext
 from longqc_tpu_torch.ops.chain import chain_dp_batch
 
-J_RUNGS = (64, 128, 256)
-# the table (padded to 4 words) and one 7 x 256 ring must fit one block's
-# 232448 bytes of shared memory
-MAX_BW = 232448 // 4 - 7 * 256 - 4
+# the table must fit one block's 232448 bytes of shared memory
+MAX_BW = 232448 // 4 - 1
 
 
-def chain_dp_fill(ax_hi, ax_lo, aq, aspan, n_anchors, pen_tab, carry, i0,
-                  *, J=64, max_dist=10000, bw=500, max_skip=25):
-    """Resumable batched chain-DP fill -> (f, p, v, flags, carry)."""
-    if J not in J_RUNGS:
-        raise ValueError("chain kernel ring depth J must be one of %s"
-                         % (J_RUNGS,))
+def chain_dp_fill(ax_hi, ax_lo, aq, aspan, n_anchors, pen_tab, *,
+                  max_dist=10000, bw=500, max_skip=25):
+    """Batched chain-DP fill -> (f, p, v)."""
     Q, A = ax_hi.shape
     if bw > MAX_BW or pen_tab.dim() != 2 or \
             pen_tab.shape[0] not in (1, Q) or pen_tab.shape[1] != bw + 1:
         raise ValueError("penalty tables must be (Q or 1, bw+1) with "
                          "bw <= %d" % MAX_BW)
-    ring, cflag = carry
-    if tuple(ring.shape) != (7, Q, J) or tuple(cflag.shape) != (Q,):
-        raise ValueError("carry shape does not match (Q, J)")
     if ax_hi.device.type == "cpu":
         return chain_dp_batch(ax_hi, ax_lo, aq, aspan, n_anchors, pen_tab,
-                              carry, i0, J=J, max_dist=max_dist, bw=bw,
-                              max_skip=max_skip)
+                              max_dist=max_dist, bw=bw, max_skip=max_skip)
     ins = [t.contiguous() for t in (ax_hi, ax_lo, aq, aspan, n_anchors,
-                                    pen_tab, ring, cflag)]
+                                    pen_tab)]
     _ext.require_cuda(*ins)
     dev = ax_hi.device
-    f, p, v = (torch.empty((Q, A), dtype=torch.int32, device=dev)
-               for _ in range(3))
-    ring_out = torch.empty_like(ring)
-    flag_out = torch.empty_like(cflag)
+    # f, p, v and the max_skip mark scratch (the reference's t[])
+    f, p, v, marks = (torch.empty((Q, A), dtype=torch.int32, device=dev)
+                      for _ in range(4))
     lib = _ext.lib()
     _ext.LAUNCHES["chain"] += 1
-    lib.chain_fill(*ins, f, p, v, ring_out, flag_out, J, bw, max_dist,
-                   max_skip, int(i0))
-    return f, p, v, flag_out != 0, (ring_out, flag_out)
+    lib.chain_fill(*ins, marks, f, p, v, bw, max_dist, max_skip)
+    return f, p, v

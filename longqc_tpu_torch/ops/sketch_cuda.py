@@ -13,6 +13,11 @@ every caller masks the rest.
 The plain version is the seg-mode `_sketch_core` (ops/sketch) plus the
 read-id / local-position mapping of the JAX tile_flat XLA branch,
 scattered back from buffer-entry order to columns.
+
+The kernel runs column chunks of each row in parallel; `chunk_plan`
+(plain tensor ops, on the tiles' device) gives each chunk the column
+its warm-up starts at and the sequential state there that the warm-up
+cannot rebuild: the segment and the k-mer registers.
 """
 
 import torch
@@ -22,6 +27,7 @@ from longqc_tpu_torch.ops.sketch import _sketch_core
 
 READS_PER_ROW = 64
 MAX_W = 32          # ring slots in the kernel
+CHUNK = 128         # columns per kernel thread
 
 
 def _check_shapes(codes2, nmask, startmask, endmask, starts, gids, W, k, w):
@@ -53,16 +59,76 @@ def sketch_tiles(codes2, nmask, startmask, endmask, starts, gids, *, W, k,
                                     starts, gids)]
     _ext.require_cuda(*ins)
     R = codes2.shape[0]
-    outs = [torch.empty((R, W), dtype=torch.int32, device=codes2.device)
-            for _ in range(5)]
+    plan = chunk_plan(*ins[:3], W=W, k=k, w=w, chunk=CHUNK)
+    dev = codes2.device
+    emit = torch.zeros((R, W), dtype=torch.int32, device=dev)
+    outs = [torch.empty((R, W), dtype=torch.int32, device=dev)
+            for _ in range(4)]
     lib = _ext.lib()
     _ext.LAUNCHES["sketch"] += 1
-    lib.sketch_rows(*ins, *outs, W, k, w)
-    emit, hsh, rid, pos, strand = outs
+    lib.sketch_rows(*ins, plan, emit, *outs, W, k, w, CHUNK)
+    hsh, rid, pos, strand = outs
     return {"emit": emit, "hash": hsh, "rid": rid, "pos": pos,
             "strand": strand,
-            "flags": torch.zeros(R, dtype=torch.int32,
-                                 device=codes2.device)}
+            "flags": torch.zeros(R, dtype=torch.int32, device=dev)}
+
+
+def chunk_plan(codes2, nmask, startmask, *, W, k, w, chunk):
+    """Warm-up plan of the chunked kernel: (R, ceil(W / chunk), 5) int32
+    rows [s0, seg, segst, k0, k1], one per chunk of `chunk`
+    columns starting at column c0 = chunk index * chunk.
+
+    s0 is the column of the (w+k)-th push before c0, or 0 when there
+    are no more than w+k (a push is every column but a valid one whose
+    k-mer is its own reverse complement). Replaying the recurrence from
+    s0 with a clean ring, a clean tracked minimum and l = 0 reproduces
+    the state at c0 for every rule the chunk's columns apply: the ring
+    then holds the same last w pushes; the tracked minimum is always the
+    ring's minimum, newest column on ties; and l either restarts at an
+    N inside the warm-up or has counted w+k valid pushes, past every
+    threshold compared with it. What the warm-up cannot rebuild is taken
+    here: seg (the read index, startmask bits before s0, minus one) and
+    segst (the column of that read's start bit, 0 when none), and the
+    k-mer registers k0 / k1 after the valid bases before s0 (the last k
+    of them, zero-filled as the recurrence starts)."""
+    R = codes2.shape[0]
+    dev = codes2.device
+    i32, i64 = torch.int32, torch.int64
+    NC = -(-W // chunk)
+    codes = unpack2(codes2, W).to(i32)
+    valid = ~unpack1(nmask, W)
+    vcum = torch.cumsum(valid, dim=1, dtype=i64)
+    # k-mer registers over the valid-base sequence (valid rank order;
+    # 2k <= 30 bits, so int32, and no shift leaves the 2k bits)
+    cv = torch.zeros((R, W + 1), dtype=i32, device=dev).scatter_(
+        1, torch.where(valid, vcum - 1, W), codes)[:, :W]
+    kf = cv.clone()
+    kr = (3 ^ cv) << (2 * (k - 1))
+    for d in range(1, k):
+        kf[:, d:] |= cv[:, :W - d] << (2 * d)
+        kr[:, d:] |= (3 ^ cv[:, :W - d]) << (2 * (k - 1 - d))
+    # registers after column j (unchanged by an ambiguous column)
+    rank = (vcum - 1).clamp(min=0)
+    k0c = torch.where(vcum > 0, torch.gather(kf, 1, rank), 0)
+    k1c = torch.where(vcum > 0, torch.gather(kr, 1, rank), 0)
+    push = ~(valid & (k0c == k1c))
+    pc = torch.cumsum(push, dim=1, dtype=i64)
+
+    c0 = torch.arange(NC, dtype=i64, device=dev) * chunk
+    prev_c = (c0 - 1).clamp(min=0).expand(R, NC)
+    n_before = torch.where(c0 > 0, torch.gather(pc, 1, prev_c), 0)
+    want = n_before - (w + k) + 1      # the push s0 starts at (1-based)
+    s0 = torch.where(want > 1, torch.searchsorted(pc, want.contiguous()),
+                     0)
+    prev = (s0 - 1).clamp(min=0)
+    k0 = torch.where(s0 > 0, torch.gather(k0c, 1, prev), 0)
+    k1 = torch.where(s0 > 0, torch.gather(k1c, 1, prev), 0)
+    scum = torch.cumsum(unpack1(startmask, W).to(i64), dim=1).contiguous()
+    n_seg = torch.where(s0 > 0, torch.gather(scum, 1, prev), 0)
+    segst = torch.where(n_seg > 0,
+                        torch.searchsorted(scum, n_seg.contiguous()), 0)
+    return torch.stack([s0, n_seg - 1, segst, k0, k1],
+                       dim=2).to(torch.int32).contiguous()
 
 
 def unpack2(words, W):

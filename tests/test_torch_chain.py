@@ -1,19 +1,26 @@
-"""B2 plain version (ops/chain_cuda.chain_dp_fill on CPU tensors) vs
-the JAX Pallas chain kernel in interpret mode: f, p, v, flags and the
-carry exactly, at J = 64 and 128, including repeat-dense rows that
-flag and chunked against monolithic calls."""
+"""B2 plain version (ops/chain_cuda.chain_dp_fill on CPU tensors), which
+scans each anchor's whole admissible window, against the JAX Pallas
+chain kernel in interpret mode (J-deep ring) and the host specs: f, p, v
+exactly on every row the Pallas kernel leaves unflagged; on the rows it
+flags (ring truncation), the chains built from the port's f, p, v equal
+the JAX package's overlap_host.chain_dp (k = 12, where its f32 gap cost
+agrees with f64), and a window deeper than 256 ages gets the host
+spec's f, p, v."""
 
 import numpy as np
 import pytest
 import torch
 from torch_util import np_, t32
 
+from longqc_tpu.engine import overlap_host as joh
 from longqc_tpu.ops.chain_pallas import (chain_dp_batch_pallas,
                                          make_carry_pallas, penalty_limbs)
-from longqc_tpu_torch.ops.chain import gap_penalty_table, make_carry
+from longqc_tpu_torch.engine import overlap_host as toh
+from longqc_tpu_torch.ops.chain import gap_penalty_table, window_depths
 from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill
 
-Q, BW = 128, 500
+Q, BW, K, MAX_DIST, MAX_SKIP = 128, 500, 12, 10000, 25
+MIN_CNT, MIN_SC = 3, 40
 
 
 def _rows(rng, A, dense):
@@ -24,8 +31,10 @@ def _rows(rng, A, dense):
     for r in range(Q):
         if dense:
             # >J anchors inside max_dist with mostly invalid pairings:
-            # the truncation regime of (AT)n reads
-            n = rng.randint(70, min(A, 200))
+            # the truncation regime of (AT)n reads (one row in four
+            # shorter than any ring)
+            n = rng.randint(20, 60) if r % 4 == 0 else \
+                rng.randint(70, min(A, 200))
             pos = np.sort(rng.randint(0, 3000, n))
             q = rng.randint(0, 20000, n)
             d = rng.rand(n) < 0.2
@@ -44,36 +53,35 @@ def _rows(rng, A, dense):
     return axh, axl, aq, nb
 
 
-def _jax(axh, axl, aq, nb, J, c0=0, carry=None):
+def _jax(axh, axl, aq, nb, J):
     A = axh.shape[1]
-    limbs = np.repeat(penalty_limbs(12.0, BW)[:, None], Q, axis=1)
+    limbs = np.repeat(penalty_limbs(float(K), BW)[:, None], Q, axis=1)
     rbad = np.zeros((1, Q), np.int32)
     return chain_dp_batch_pallas(
-        axh, axl, aq, np.full((Q, A), 12, np.int32), nb, limbs, rbad,
-        carry if carry is not None else make_carry_pallas(Q, J),
-        np.int32(c0), J=J, max_dist=10000, bw=BW, max_skip=25,
-        interpret=True)
+        axh, axl, aq, np.full((Q, A), K, np.int32), nb, limbs, rbad,
+        make_carry_pallas(Q, J), np.int32(0), J=J, max_dist=MAX_DIST, bw=BW,
+        max_skip=MAX_SKIP, interpret=True)
 
 
-def _port(axh, axl, aq, nb, J, c0=0, carry=None):
-    A = axh.shape[1]
-    pen = torch.from_numpy(gap_penalty_table(np.float32(12), BW))[None, :]
-    return chain_dp_fill(t32(axh), t32(axl), t32(aq),
-                         torch.full((Q, A), 12, dtype=torch.int32), t32(nb),
-                         pen, carry if carry is not None else make_carry(Q, J),
-                         c0, J=J, max_dist=10000, bw=BW, max_skip=25)
+def _port(axh, axl, aq, nb):
+    pen = torch.from_numpy(gap_penalty_table(np.float32(K), BW))[None, :]
+    f, p, v = chain_dp_fill(t32(axh), t32(axl), t32(aq),
+                            torch.full(axh.shape, K, dtype=torch.int32),
+                            t32(nb), pen, max_dist=MAX_DIST, bw=BW,
+                            max_skip=MAX_SKIP)
+    return np_(f), np_(p), np_(v)
 
 
-def _assert_same(j, p):
-    f0, p0, v0, fl0, c0 = j
-    f1, p1, v1, fl1, c1 = p
-    assert np.array_equal(np.asarray(f0), np_(f1))
-    assert np.array_equal(np.asarray(p0), np_(p1))
-    assert np.array_equal(np.asarray(v0), np_(v1))
-    assert np.array_equal(np.asarray(fl0), np_(fl1))
-    for c in range(7):   # JAX carry rings are (J, Q)
-        assert np.array_equal(np.asarray(c0[c]).T, np_(c1[0][c])), c
-    assert np.array_equal(np.asarray(c0[7]).reshape(-1), np_(c1[1]))
+def _host_row(axh, axl, aq, n):
+    """A row as the host spec's (ax, ay) u64 anchors (span K)."""
+    ax = (axh[:n].astype(np.uint64) << np.uint64(32)) | \
+        axl[:n].astype(np.uint64)
+    ay = (np.uint64(K) << np.uint64(32)) | aq[:n].astype(np.uint64)
+    return ax, ay
+
+
+def _depth(axh, axl, nb):
+    return np_(window_depths(t32(axh), t32(axl), t32(nb), MAX_DIST))
 
 
 @pytest.mark.parametrize("J", [64, 128])
@@ -81,32 +89,66 @@ def _assert_same(j, p):
 def test_chain_fill_plain_matches_pallas(J, dense):
     rng = np.random.RandomState(J + dense)
     rows = _rows(rng, 256 if dense else 512, dense)
-    j = _jax(*rows, J)
-    p = _port(*rows, J)
-    _assert_same(j, p)
-    nflag = int(np.asarray(j[3]).sum())
+    axh, axl, aq, nb = rows
+    jf, jp, jv, jfl = (np.asarray(a) for a in _jax(*rows, J)[:4])
+    f, p, v = _port(*rows)
+    flagged = jfl != 0
+    clean = ~flagged
+    assert clean.sum() > 0
+    for a, b in ((jf, f), (jp, p), (jv, v)):
+        np.testing.assert_array_equal(a[clean], b[clean])
+    # the Pallas kernel's flags come from ring truncation alone: every
+    # flagged row has an anchor whose window reaches J ages, so its
+    # second max_skip pass never changed a row the ring held
+    depth = _depth(axh, axl, nb).max(axis=1)
+    assert (depth[flagged] >= J).all()
     if dense and J == 64:
-        assert nflag > Q // 2          # the dense rows truncate the ring
+        assert flagged.sum() > Q // 2        # the dense rows truncate
     if not dense:
-        assert nflag < Q
+        assert flagged.sum() < Q
+    # flagged rows: the chains of the port's f, p, v are the JAX host
+    # spec's
+    for r in np.nonzero(flagged)[0]:
+        n = int(nb[r])
+        ax, ay = _host_row(axh[r], axl[r], aq[r], n)
+        want = joh.chain_dp(ax, ay, MAX_DIST, BW, MAX_SKIP, MIN_CNT, MIN_SC)
+        got = toh.chain_backtrack(f[r, :n], p[r, :n].astype(np.int64),
+                                  v[r, :n], MIN_CNT, MIN_SC)
+        assert [c[0] for c in got] == [c[0] for c in want]
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a[1], b[1])
 
 
-def test_chain_fill_chunked_equals_monolithic():
+def test_chain_fill_deep_window_matches_host_spec():
+    """Repeat-dense rows whose admissible windows exceed 256 ages (the
+    Pallas kernel flags them at its deepest ring, J = 256, and the JAX
+    engine sends them to the host spec): the port's fill equals the
+    host spec's f, p, v on every row."""
     rng = np.random.RandomState(7)
-    A, J, H = 512, 64, 256
-    axh, axl, aq, nb = _rows(rng, A, False)
-    mono = _port(axh, axl, aq, nb, J)
-    _assert_same(_jax(axh, axl, aq, nb, J), mono)
-    carry = make_carry(Q, J)
-    parts = []
-    for c0 in (0, H):
-        sl = slice(c0, c0 + H)
-        out = _port(axh[:, sl], axl[:, sl], aq[:, sl], nb, J, c0=c0,
-                    carry=carry)
-        carry = out[4]
-        parts.append(out)
-    for i in range(3):
-        assert np.array_equal(np_(mono[i]),
-                              np.concatenate([np_(o[i]) for o in parts], 1))
-    assert np.array_equal(np_(mono[3]), np_(parts[0][3] | parts[1][3]))
-    assert np.array_equal(np_(mono[4][0]), np_(carry[0]))
+    R, A = 8, 640
+    axh = np.zeros((R, A), np.int32)
+    axl = np.zeros((R, A), np.int32)
+    aq = np.zeros((R, A), np.int32)
+    nb = rng.randint(400, A, R).astype(np.int32)
+    for r in range(R):
+        n = nb[r]
+        pos = np.sort(rng.randint(0, 1500, n))
+        q = rng.randint(0, 30000, n)
+        d = rng.rand(n) < 0.3
+        q[d] = np.clip(pos[d] + rng.randint(-30, 30, d.sum()), 0, None)
+        axl[r, :n] = pos
+        aq[r, :n] = q
+    depth = _depth(axh, axl, nb).max(axis=1)
+    assert (depth > 256).all()
+    f, p, v = _port(axh, axl, aq, nb)
+    for r in range(R):
+        n = int(nb[r])
+        hf, hp, hv = toh.chain_fill(*_host_row(axh[r], axl[r], aq[r], n),
+                                    MAX_DIST, BW, MAX_SKIP)
+        np.testing.assert_array_equal(f[r, :n], hf)
+        np.testing.assert_array_equal(p[r, :n], hp)
+        np.testing.assert_array_equal(v[r, :n], hv)
+        assert (f[r, n:] == 0).all() and (p[r, n:] == -1).all()
+    # parents deeper than any ring the JAX engine escalates to
+    deep = (np.arange(A)[None, :] - p) > 256
+    assert (deep & (p >= 0)).any()

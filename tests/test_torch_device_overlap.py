@@ -34,11 +34,11 @@ def _cfgs(**kw):
     return t, j
 
 
-def _small():
+def _small(err=0.12):
     rng = np.random.RandomState(11)
     genome = make_genome(rng, 30000)
     reads = sample_reads(rng, genome, 150, min_len=700, max_len=2200,
-                         err=0.12, junk_frac=0.1)
+                         err=err, junk_frac=0.1)
     return reads, reads[:40]
 
 
@@ -57,8 +57,67 @@ def _events(packed, Q, full):
     return out
 
 
-def test_count_and_step_match_jax_through_convert():
-    reads, queries = _small()
+def jax_step_final(run, Q, host_fix, n_state=4):
+    """The JAX step as its engine resolves it: rows flagged F_KERNEL
+    (chain-ring truncation) re-run alone at J = 128 from the same state,
+    and the rows still flagged are recomputed by the JAX engine's exact
+    host fix (its engine tries J = 256 before that; both are exact).
+    `run(qvalid, jring)` runs one JAX step, whose output is n_state
+    state arrays, the packed pull and the full events; `host_fix(rows)`
+    returns the host-fixed state arrays and those rows' events. Returns
+    the committed state, the flags, the per-row events, and the numbers
+    of rows resolved at J = 128 and by the host fix."""
+    out = run(None, jdo.J)
+    state = [np.array(a) for a in out[:n_state]]
+    packed, full = out[n_state], out[n_state + 1]
+    flags = np.asarray(packed)[:Q].copy()
+    ev = _events(packed, Q, full)
+    rows = np.nonzero(flags == jdo.F_KERNEL)[0]
+    n_esc = n_host = 0
+    if len(rows):
+        qv = np.zeros(Q, np.int32)
+        qv[rows] = 1
+        re = run(jnp.asarray(qv), 2 * jdo.J)
+        rflags = np.asarray(re[n_state])[:Q]
+        rev = _events(re[n_state], Q, re[n_state + 1])
+        for r in rows:
+            flags[r] = rflags[r]
+            ev[r] = rev[r]
+            if not rflags[r]:
+                n_esc += 1
+                for a, b in zip(state, re[:n_state]):
+                    a[r] = np.asarray(b)[r]
+    rows = np.nonzero(flags == jdo.F_KERNEL)[0]
+    if len(rows):
+        hstate, hev = host_fix(rows)
+        for i, r in enumerate(rows):
+            flags[r] = 0
+            ev[r] = hev[i]
+            n_host += 1
+            for a, b in zip(state, hstate):
+                a[r] = b[r]
+    return state, flags, ev, n_esc, n_host
+
+
+def jax_host_fix(cfg_j, queries, jg, jp, names, state):
+    """host_fix for jax_step_final: the JAX engine's _host_fix of `rows`
+    from the pre-step `state` (arrays named `names` on the group)."""
+    def fix(rows):
+        eng = jdo.DeviceOverlapEngine(cfg_j, queries, interpret=True)
+        for n, a in zip(names, state):
+            setattr(jg, n, jnp.asarray(a))
+        eng._host_fix(jg, jp, [int(r) for r in rows], None)
+        return ([np.asarray(getattr(jg, n)) for n in names],
+                [sorted(eng.events[jg.qids[r]]) for r in rows])
+    return fix
+
+
+@pytest.mark.parametrize("err", [0.12, 0.04])
+def test_count_and_step_match_jax_through_convert(err):
+    """At err 0.04 anchor windows run deeper than the JAX chain ring of
+    64: rows the JAX step flags F_KERNEL and its engine resolves at a
+    deeper ring or on the host, which the port resolves in one step."""
+    reads, queries = _small(err)
     cfg_t, cfg_j = _cfgs()
     k, w, Q = 12, 5, tdo.GROUP_Q
     jp = jdo._PartIndex(reads, k, w, 0, 2e-4, jdi.TILE_LADDER_SMALL,
@@ -84,34 +143,47 @@ def test_count_and_step_match_jax_through_convert():
 
     nq = np_(cnt)[:len(queries)]
     A = next(a for a in tdo.A_BUCKETS if a >= nq.max())
-    jst = jdo._make_static(cfg_j, Q, jg.M, jg.M2, A, k, True)
     tst = tdo._make_static(cfg_t, jg.M, jg.M2, A, k)
     limbs5 = jnp.asarray(penalty_limbs(float(np.float32(k)), cfg_j.map.bw))
     pen = torch.from_numpy(gap_penalty_table(np.float32(k),
                                              cfg_t.map.bw))[None, :]
-    jstate = [jnp.asarray(arrays[n]) for n in convert.STATE_ARRAYS]
+    jstate = [np.asarray(arrays[n]) for n in convert.STATE_ARRAYS]
     tstate = [g[n] for n in convert.STATE_ARRAYS]
+    n_esc = n_host = 0
     # two consecutive steps: the second starts from a nonzero state
     for _ in range(2):
-        jout = jdo._step(
-            jp.irid, jp.ips, jp.seq_lens, jp.rid_rank, jp.mid_occ, jleft,
-            jocc, jg.qps, jg.qcnt, jg.n_slots, jg.n_exp, jg.qlen,
-            jnp.asarray(qrank), jnp.asarray(qbisect), jg.qvalid,
-            *[jnp.array(a, copy=True) for a in jstate], limbs5, st=jst)
+        def run(qvalid, jring):
+            jst = jdo._make_static(cfg_j, Q, jg.M, jg.M2, A, k, True,
+                                   jring=jring)
+            return jdo._step(
+                jp.irid, jp.ips, jp.seq_lens, jp.rid_rank, jp.mid_occ,
+                jleft, jocc, jg.qps, jg.qcnt, jg.n_slots, jg.n_exp,
+                jg.qlen, jnp.asarray(qrank), jnp.asarray(qbisect),
+                jg.qvalid if qvalid is None else qvalid,
+                *[jnp.array(a, copy=True) for a in jstate], limbs5, st=jst)
+
+        jfin, jflags, jev, esc, host = jax_step_final(
+            run, Q, jax_host_fix(cfg_j, queries, jg, jp,
+                                 convert.STATE_ARRAYS, jstate))
+        n_esc += esc
+        n_host += host
         tout = tdo._step_impl(
             idx["irid"], idx["ips"], t32(jp.seq_lens), t32(jp.rid_rank),
             idx["mid_occ"], left, occ, g["qps"], g["qcnt"], g["n_slots"],
             g["n_exp"], g["qlen"], t32(qrank), t32(qbisect), g["qvalid"],
             *tstate, pen, tst)
-        for a, b in zip(jout[:4], tout[:4]):       # lam lam2 avgk m_cnts
-            assert np.array_equal(np.asarray(a), np_(b))
-        jflags = np.asarray(jout[4])[:Q]
-        assert np.array_equal(jflags, np_(tout[4])[:Q])
+        # the port scans whole windows: it never flags F_KERNEL, and its
+        # rows equal the JAX engine's after the J escalation
+        for a, b in zip(jfin, tout[:4]):       # lam lam2 avgk m_cnts
+            assert np.array_equal(a, np_(b))
+        tflags = np_(tout[4])[:Q]
+        assert not (tflags & jdo.F_KERNEL).any()
+        assert np.array_equal(jflags & ~jdo.F_KERNEL, tflags)
         assert (jflags[:len(queries)] == 0).sum() > len(queries) // 2
-        assert _events(jout[4], Q, jout[5]) == _events(np_(tout[4]), Q,
-                                                        np_(tout[5]))
+        assert jev == _events(np_(tout[4]), Q, np_(tout[5]))
         assert np_(tout[0]).sum() > 0
-        jstate, tstate = list(jout[:4]), list(tout[:4])
+        jstate, tstate = jfin, list(tout[:4])
+    assert (n_esc + n_host > 0) == (err < 0.1)
 
 
 def test_rows_match_jax_engine_small():

@@ -32,9 +32,10 @@ from longqc_tpu_torch.engine import device_overlap as tdo
 from longqc_tpu_torch.engine import overlap_host as toh
 from longqc_tpu_torch.engine.device_overlap import DeviceOverlapEngine
 from longqc_tpu_torch.ops import sketch_hpc as thpc
-from longqc_tpu_torch.ops.chain import gap_penalty_table, make_carry
+from longqc_tpu_torch.ops.chain import gap_penalty_table
 from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill
 from longqc_tpu_torch.ops.sketch import sketch_batch
+from test_torch_device_overlap import _events, jax_host_fix, jax_step_final
 from util_synth import make_genome, sample_reads
 
 
@@ -141,7 +142,9 @@ def test_hpc_host_spec_rows_match_jax():
 def test_chain_fill_per_row_tables_match_pallas():
     """Distinct fractional mean spans per row (the HPC engine's
     avg_qspan): the plain version with one f64-exact table per row
-    equals the Pallas kernel with each row's limbs."""
+    equals the Pallas kernel with each row's limbs on every row the
+    Pallas kernel leaves unflagged, and the port's host fill with that
+    row's avg_qspan on the rows it flags (ring truncation)."""
     rng = np.random.RandomState(13)
     Q, A, J, bw = 128, 256, 64, 500
     avg = [np.float32(15 + (r % 37) / 7.0) for r in range(Q)]
@@ -167,14 +170,23 @@ def test_chain_fill_per_row_tables_match_pallas():
                               max_dist=5000, bw=bw, max_skip=25,
                               interpret=True)
     p = chain_dp_fill(t32(axh), t32(axl), t32(aq), t32(span), t32(nb), pen,
-                      make_carry(Q, J), 0, J=J, max_dist=5000, bw=bw,
-                      max_skip=25)
-    for i in range(4):
-        np.testing.assert_array_equal(np.asarray(j[i]), np_(p[i]))
+                      max_dist=5000, bw=bw, max_skip=25)
+    flagged = np.asarray(j[3]) != 0
+    assert 0 < flagged.sum() < Q
+    for i in range(3):
+        np.testing.assert_array_equal(np.asarray(j[i])[~flagged],
+                                      np_(p[i])[~flagged])
+    for r in np.nonzero(flagged)[0]:
+        n = int(nb[r])
+        ax = axl[r, :n].astype(np.uint64)
+        ay = (span[r, :n].astype(np.uint64) << np.uint64(32)) | \
+            aq[r, :n].astype(np.uint64)
+        want = toh.chain_fill(ax, ay, 5000, bw, 25, avg_qspan=avg[r])
+        for i in range(3):
+            np.testing.assert_array_equal(np_(p[i])[r, :n], want[i])
     # a single table for every row differs: the rows do use their own
     one = chain_dp_fill(t32(axh), t32(axl), t32(aq), t32(span), t32(nb),
-                        pen[:1], make_carry(Q, J), 0, J=J, max_dist=5000,
-                        bw=bw, max_skip=25)
+                        pen[:1], max_dist=5000, bw=bw, max_skip=25)
     assert not torch.equal(one[0], p[0])
 
 
@@ -230,8 +242,7 @@ def test_gap_cost_follows_chain_c_double(ssum, dd):
                               interpret=True)
     pen = torch.from_numpy(gap_penalty_table(avg, bw)[None])
     p = chain_dp_fill(*(t32(a) for a in lanes), t32(nb), pen,
-                      make_carry(Q, J), 0, J=J, max_dist=5000, bw=bw,
-                      max_skip=25)
+                      max_dist=5000, bw=bw, max_skip=25)
     assert int(np.asarray(j[0])[0, n_a - 2]) == want
     assert int(np_(p[0])[0, n_a - 2]) == want
 
@@ -258,7 +269,8 @@ def test_hpc_step_matches_jax_through_convert():
     same staged arrays (longqc_tpu_torch.convert): the (Q, 5) span
     statistics, then, with the per-row tables / limbs fitted from them,
     the committed state (avgk_val included), flags and events; two
-    consecutive steps."""
+    consecutive steps. Rows the JAX step flags F_KERNEL compare against
+    the JAX engine's escalated (J = 128 / 256) rows."""
     targets, queries = _ava_input()
     cfg_t, cfg_j = _cfgs(False, min_score_med=80, min_score_good=160)
     k, w, Q, bw = 15, 10, tdo.GROUP_Q, cfg_t.map.bw
@@ -285,7 +297,7 @@ def test_hpc_step_matches_jax_through_convert():
     jst = jdo._make_static(cfg_j, Q, jg.M, jg.M2, A, k, True)
     tst = tdo._make_static(cfg_t, jg.M, jg.M2, A, k)
     names = ("lam", "lam2", "avgk_set", "avgk_val", "m_cnts")
-    jstate = [jnp.asarray(arrays[n]) for n in names]
+    jstate = [np.asarray(arrays[n]) for n in names]
     tstate = [g[n] for n in names]
     for _ in range(2):
         ja = jdo._step_hpc_a(
@@ -308,17 +320,30 @@ def test_hpc_step_matches_jax_through_convert():
                 avg_q = np.float32(ssum / n_a)
                 limbs[:, r] = penalty_limbs(float(avg_q), bw)
                 pen[r] = gap_penalty_table(avg_q, bw)
-        jout = jdo._step_hpc_b(
-            *ja[:8], jp.seq_lens, jg.qlen, jg.qvalid, jg.n_exp,
-            *[jnp.array(a, copy=True) for a in jstate], jnp.asarray(limbs),
-            jnp.zeros((1, Q), jnp.int32), jnp.asarray(kept_avg), st=jst)
+        def run_b(qvalid, jring):
+            st = jdo._make_static(cfg_j, Q, jg.M, jg.M2, A, k, True,
+                                  jring=jring)
+            return jdo._step_hpc_b(
+                *ja[:8], jp.seq_lens, jg.qlen,
+                jg.qvalid if qvalid is None else qvalid, jg.n_exp,
+                *[jnp.array(a, copy=True) for a in jstate],
+                jnp.asarray(limbs), jnp.zeros((1, Q), jnp.int32),
+                jnp.asarray(kept_avg), st=st)
+
+        # the JAX engine's rows: F_KERNEL rows escalated to J = 128, then
+        # host-fixed
+        jfin, jflags, jev, _, _ = jax_step_final(
+            run_b, Q, jax_host_fix(cfg_j, queries, jg, jp, names, jstate),
+            n_state=5)
         tout = tdo._step_hpc_b(
             tanch, t32(jp.seq_lens), g["qlen"], g["qvalid"], g["n_exp"],
             *tstate, torch.from_numpy(pen), torch.from_numpy(kept_avg), tst)
-        for a, b in zip(jout[:5], tout[:5]):
-            np.testing.assert_array_equal(np.asarray(a), np_(b))
-        jflags = np.asarray(jout[5])[:Q]
-        np.testing.assert_array_equal(jflags, np_(tout[5])[:Q])
+        for a, b in zip(jfin, tout[:5]):
+            np.testing.assert_array_equal(a, np_(b))
+        tflags = np_(tout[5])[:Q]
+        assert not (tflags & jdo.F_KERNEL).any()
+        np.testing.assert_array_equal(jflags & ~jdo.F_KERNEL, tflags)
         assert (jflags[:len(queries)] == 0).sum() > len(queries) // 2
+        assert jev == _events(np_(tout[5]), Q, np_(tout[6]))
         assert np_(tout[3]).sum() > 0          # avgk_val was set
-        jstate, tstate = list(jout[:5]), list(tout[:5])
+        jstate, tstate = jfin, list(tout[:5])

@@ -12,7 +12,7 @@ from longqc_tpu_torch.ops import extend as ext
 from longqc_tpu_torch.ops import ringprop as rp
 from longqc_tpu_torch.ops import sketch_cuda as skc
 from longqc_tpu_torch.ops.chain import (chain_dp_batch, gap_penalty_table,
-                                        make_carry)
+                                        window_depths)
 from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill
 
 pytestmark = pytest.mark.cuda
@@ -25,29 +25,45 @@ def dev():
     return torch.device("cuda")
 
 
-def test_sketch_kernel_matches_plain(dev):
-    rng = np.random.RandomState(1)
-    b = di._TileBuilder(16, 2048, 4)
-    for i in range(200):
+def _long_run_tile(rng, R, W):
+    """Reads with N runs and (AT)n runs longer than the kernel's column
+    chunk (ops/sketch_cuda.CHUNK), IUPAC-free random sequence between."""
+    b = di._TileBuilder(R, W, 4)
+    gid = 0
+    while len(b.rows) < R:
         s = "".join(rng.choice(list("ACGTN"), p=[.24, .24, .24, .24, .04],
-                               size=rng.randint(50, 900)))
-        b.add(i, s + "AT" * rng.randint(0, 60))
-    t = b.tiles()[0]
+                               size=rng.randint(50, min(W // 2, 9000))))
+        if gid % 3 == 1:
+            s += "AT" * rng.randint(100, 600)
+        if gid % 4 == 2:
+            p = rng.randint(0, len(s))
+            s = s[:p] + "N" * rng.randint(150, 700) + s[p:]
+        b.add(gid, s[:W])
+        gid += 1
+    return b.tiles()[0]
+
+
+@pytest.mark.parametrize("R,W", [(16, 2048), (256, 8192), (32, 65536)])
+def test_sketch_kernel_matches_plain(dev, R, W):
+    rng = np.random.RandomState(W)
+    t = _long_run_tile(rng, R, W)
     args = [di.to_device_words(a, dev) for a in
             (t.codes2, t.nmask, t.startmask, t.endmask)] + \
         [torch.from_numpy(a).to(dev) for a in (t.starts, t.gids)]
-    k = skc.sketch_tiles(*args, W=2048, k=12, w=5)
-    p = skc.sketch_tiles_plain(*args, W=2048, k=12, w=5)
-    assert torch.equal(k["emit"], p["emit"])
-    on = p["emit"] > 0
-    for f in ("hash", "rid", "pos", "strand"):
-        assert torch.equal(k[f][on], p[f][on])
+    for k, w in ((12, 5), (15, 10)):
+        kr = skc.sketch_tiles(*args, W=W, k=k, w=w)
+        p = skc.sketch_tiles_plain(*args, W=W, k=k, w=w)
+        assert torch.equal(kr["emit"], p["emit"])
+        on = p["emit"] > 0
+        assert int(on.sum()) > 0
+        for f in ("hash", "rid", "pos", "strand"):
+            assert torch.equal(kr[f][on], p[f][on])
 
 
 def _anchor_rows(rng, Q, A, dense):
     """Sorted anchor rows: diagonal-clustered (`dense` False) or
-    repeat-dense position bands with scattered query positions, the
-    regime whose rows flag (ring truncation / max_skip disagreement)."""
+    repeat-dense position bands with scattered query positions, whose
+    admissible windows run deeper than 256 ages."""
     pos = np.sort(rng.randint(0, 800 if dense else 6000, (Q, A)), axis=1)
     q = pos + rng.randint(-60, 60, (Q, A))
     if dense:
@@ -60,48 +76,33 @@ def _anchor_rows(rng, Q, A, dense):
 
 @pytest.mark.parametrize("tables", ["one", "per_row"])
 @pytest.mark.parametrize("dense", [False, True], ids=["spread", "dense"])
-@pytest.mark.parametrize("J", [64, 128, 256])
-def test_chain_and_ringprop_kernels_match_plain(dev, J, dense, tables):
-    rng = np.random.RandomState(J + dense)
-    Q, A = 128, 512
+def test_chain_and_ringprop_kernels_match_plain(dev, dense, tables):
+    rng = np.random.RandomState(5 + dense)
+    Q, A = 128, 1024
     axl, aq, n = (t.to(dev) for t in _anchor_rows(rng, Q, A, dense))
     axh = torch.zeros((Q, A), dtype=torch.int32, device=dev)
     span = torch.full((Q, A), 12, dtype=torch.int32, device=dev)
+    depth = window_depths(axh, axl, n, 10000).amax(dim=1)
+    if dense:
+        assert int((depth > 256).sum()) > Q // 2
     # the plain engine's one (1, bw+1) table (row stride 0), or a
     # distinct table per row (the HPC engine's per-row avg_qspan)
     avg = [12] if tables == "one" else [12 + r / 7 for r in range(Q)]
     pen = torch.from_numpy(np.stack([
         gap_penalty_table(np.float32(a), 500) for a in avg])).to(dev)
-    ko = chain_dp_fill(axh, axl, aq, span, n, pen, make_carry(Q, J, dev), 0,
-                       J=J)
-    po = chain_dp_batch(axh, axl, aq, span, n, pen, make_carry(Q, J, dev), 0,
-                        J=J)
-    for a, b in zip(ko[:4], po[:4]):
+    ko = chain_dp_fill(axh, axl, aq, span, n, pen)
+    po = chain_dp_batch(axh, axl, aq, span, n, pen)
+    for a, b in zip(ko, po):
         assert torch.equal(a, b)
-    assert torch.equal(ko[4][0], po[4][0])
-    assert torch.equal(ko[4][1], po[4][1])
-    if dense:
-        assert bool(ko[3].any())
-    # two chunks through the carry equal the monolithic call
-    c = make_carry(Q, J, dev)
-    parts = []
-    for lo, hi in ((0, 200), (200, A)):
-        sl = [t[:, lo:hi].contiguous() for t in (axh, axl, aq, span)]
-        out = chain_dp_fill(*sl, n, pen, c, lo, J=J)
-        c = out[4]
-        parts.append(out[:3])
-    for j in range(3):
-        assert torch.equal(torch.cat([parts[0][j], parts[1][j]], dim=1),
-                           ko[j])
-    assert torch.equal(c[0], ko[4][0]) and torch.equal(c[1], ko[4][1])
-    f, p, v = ko[:3]
-    assert torch.equal(rp.peak_pass(f, v, p, J=J),
-                       rp.peak_pass_plain(f, v, p, J=J))
+    f, p, v = ko
+    # parents may lie any distance back: the passes run with J = A
+    assert torch.equal(rp.peak_pass(f, v, p, J=A),
+                       rp.peak_pass_plain(f, v, p, J=A))
     own = torch.where(torch.rand((Q, A), device=dev) < 0.1,
                       torch.randint(0, 50, (Q, A), device=dev),
                       rp.INF32).int()
-    assert torch.equal(rp.minrank_pass(p, own, J=J),
-                       rp.minrank_pass_plain(p, own, J=J))
+    assert torch.equal(rp.minrank_pass(p, own, J=A),
+                       rp.minrank_pass_plain(p, own, J=A))
 
 
 def _ext_pairs(rng, B, Lq, Lt):
