@@ -18,8 +18,11 @@ prints the final result line):
      one gap-penalty table of the plain engine, row stride 0, and with
      one table per row, as the HPC engine gives it) on rows whose
      windows run deeper than 256 ages, with the ages each anchor scans;
-     B3 / B4 with no window limit (J = A), as the engine calls them;
-     both times and each kernel's bound printed
+     B3 / B4 with no window limit (J = A), as the engine calls them, on
+     B2's output (Q=128 A=8192) and on Q=128 A=65536 synthetic forests
+     (depth-A paths, chains across B3 / B4's chunks, garbage parents,
+     parents past J) with J = A and J = 256; both times and each
+     kernel's bound printed
   4. small end to end: the engine's rows on the card equal the port's
      host spec (overlap_host.overlap_run)
   5. realistic `mmcov` run through longqc_tpu_torch.cli.main at the
@@ -28,7 +31,8 @@ prints the final result line):
      queries; the reader (native, else fail) and its parse seconds,
      kernel launch counts (step calls = B2 launches), retry steps,
      flag counts, host-fixed rows (<= 5%) and 32 random queries' rows
-     against the host spec; then one more run of the same command under
+     against the host spec; B3 / B4 launches by anchor rung and their
+     summed bound; then one more run of the same command under
      torch.profiler for each kernel's total device time on the path
   6. B5, the banded extension (ops/extend.extz_batch), on 8,192 pairs
      of 500-4,000 bp (10 Mbp genome, err 0.12, 20% unrelated pairs so
@@ -40,10 +44,10 @@ prints the final result line):
      (mmcov -H -k 15 -w 10 -c 1 -l 0 --filter) against the Sequel
      control reference in the repository: 5,000 queries of 1-8 kbp,
      100 of them from the (unrolled) control; the reader (native, else
-     fail), B2-B4 launch counts, host-fixed rows (<= 5%), the filter
-     marking every control-derived query and no other, and the rows of
-     every control-derived query and 32 random others against the host
-     spec
+     fail), B2-B4 launch counts (B3 / B4 by anchor rung), host-fixed
+     rows (<= 5%), the filter marking every control-derived query and
+     no other, and the rows of every control-derived query and 32
+     random others against the host spec
 Kernel launch counts are reset just before each path (phases 5, 6, 7)
 and read just after it. Each kernel's bound is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and
@@ -309,21 +313,7 @@ def check_chain_ringprop(dev, k, bw=500):
                             bound_ms=b_ms, bound_by=b_by,
                             shape="Q=%d A=%d (%s)" % (Q, A, tab))
     f, p, v = fk, pk, vk
-
-    # parents lie any distance back: no window limit, as the engine
-    pk_k = rp.peak_pass(f, v, p, J=A)
-    t = time.time()
-    pk_p = rp.peak_pass_plain(f, v, p, J=A)
-    torch.cuda.synchronize()
-    pms = (time.time() - t) * 1e3
-    err = require_equal("peak", pk_k, pk_p)
-    ms = cuda_ms(lambda: rp.peak_pass(f, v, p, J=A), 5)
-    b_ms, b_by = bound(4 * Q * A * 4, 0)
-    log("B3 peak Q=%d A=%d J=A: equal; kernel %.3f ms, plain %.3f ms, "
-        "bound %.4f ms (%s)" % (Q, A, ms, pms, b_ms, b_by))
-    out["peak"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
-                       bound_by=b_by, shape="Q=%d A=%d" % (Q, A))
-
+    # parents lie any distance back: no window limit, as the engine;
     # own ranks at chain ends (anchors nobody points at), random order
     g = torch.Generator(device="cpu").manual_seed(9)
     on = torch.arange(A, device=dev)[None, :] < nb[:, None].long()
@@ -333,20 +323,112 @@ def check_chain_ringprop(dev, k, bw=500):
     ends = on & ~is_par[:, :A]
     ranks = torch.randint(0, 4096, (Q, A), generator=g).to(dev).int()
     own = torch.where(ends, ranks, rp.INF32).int()
-    mr_k = rp.minrank_pass(p, own, J=A)
-    t = time.time()
-    mr_p = rp.minrank_pass_plain(p, own, J=A)
-    torch.cuda.synchronize()
-    pms = (time.time() - t) * 1e3
-    err = require_equal("minrank", mr_k, mr_p)
-    ms = cuda_ms(lambda: rp.minrank_pass(p, own, J=A), 5)
-    b_ms, b_by = bound(3 * Q * A * 4, 0)
-    log("B4 minrank Q=%d A=%d J=A: equal; kernel %.3f ms, plain %.3f ms, "
-        "bound %.4f ms (%s)" % (Q, A, ms, pms, b_ms, b_by))
-    out["minrank"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                          bound_ms=b_ms, bound_by=b_by,
-                          shape="Q=%d A=%d" % (Q, A))
+    check_ringprop("B2's output", f, v, p, own, A, out, "")
+
+    # Q=128 A=65536 synthetic forests: depth-A paths, chains across
+    # chunks, garbage parents, parents past J; with J = A and J = 256
+    f, v, p, own = (torch.from_numpy(a).to(dev)
+                    for a in ringprop_forests(np.random.RandomState(8), Q,
+                                              65536))
+    for J, sfx in ((65536, "_A65536"), (256, "_A65536_J256")):
+        check_ringprop("synthetic forests", f, v, p, own, J, out, sfx)
     return out
+
+
+def ringprop_forests(rng, Q, A):
+    """(Q, A) int32 f, v, p, own: rows 0 and 1 a path of depth A (p[i] =
+    i - 1); then by row mod 3 forests of chains (links mostly under 20
+    back, 2 % anywhere back), garbage parents (anywhere in [-1, A), p >=
+    i too), and links up to 768 back (past J = 256). own: a rank at the
+    peak of each chain end, as the engine's (row 1: one rank, at the
+    root), on the garbage rows 20 % of anchors, and on row 0 every
+    anchor, the deepest smallest."""
+    import numpy as np
+    ii = np.arange(A)
+    f = rng.randint(1, 200, (Q, A))
+    v = f + (rng.rand(Q, A) < 0.8) * rng.randint(1, 40, (Q, A))
+    d = 1 + rng.geometric(0.15, (Q, A))
+    far = rng.rand(Q, A) < 0.02
+    d[far] = rng.randint(1, A, int(far.sum()))
+    p = np.where(rng.rand(Q, A) < 0.9, ii - d, -1)
+    kind = np.arange(Q) % 3
+    p[kind == 1] = rng.randint(-1, A, (int((kind == 1).sum()), A))
+    p[kind == 2] = ii - rng.randint(1, 769, (int((kind == 2).sum()), A))
+    p[:2] = ii - 1
+    v[:2] = f[:2] + 1
+    p = np.maximum(p, -1)
+    # peaks of chain ends (where the ranks go) by the walk itself
+    walk = (v > f) & (p >= 0) & (p < ii)
+    peak = np.where(walk, -1, ii)
+    rows = np.arange(Q)[:, None]
+    for i in range(A):
+        w = walk[:, i]
+        peak[w, i] = peak[w, p[w, i]]
+    ends = np.ones((Q, A), bool)
+    qq, jj = np.nonzero(p >= 0)
+    ends[qq, p[qq, jj]] = False
+    own = np.full((Q, A + 1), 0x7FFFFFFF, np.int64)
+    at = np.where(ends & (peak >= 0), peak, A)
+    own[rows, at] = rng.randint(0, 1 << 20, (Q, A))
+    own = own[:, :A]
+    garb = (kind == 1) & (np.arange(Q) >= 2)
+    own[garb] = np.where(rng.rand(int(garb.sum()), A) < 0.2,
+                         rng.randint(0, 99, (int(garb.sum()), A)), 0x7FFFFFFF)
+    own[0] = A - ii
+    return [a.astype(np.int32) for a in (f, v, p, own)]
+
+
+def check_ringprop(what, f, v, p, own, J, out, sfx):
+    """B3 and B4 against their plain versions on (Q, A) rows, exact;
+    times and bounds into out[name] as ms / plain_ms / bound_ms, each
+    key suffixed with `sfx`."""
+    import torch
+    from longqc_tpu_torch.ops import ringprop as rp
+
+    Q, A = f.shape
+    for name in ("peak", "minrank"):
+        if name == "peak":
+            args, n_arrays = (f, v, p), 4
+            kern, plain = rp.peak_pass, rp.peak_pass_plain
+        else:
+            args, n_arrays = (p, own), 3
+            kern, plain = rp.minrank_pass, rp.minrank_pass_plain
+        got = kern(*args, J=J)
+        t = time.time()
+        want = plain(*args, J=J)
+        torch.cuda.synchronize()
+        pms = (time.time() - t) * 1e3
+        err = require_equal("%s %s J=%d" % (name, what, J), got, want)
+        ms = cuda_ms(lambda: kern(*args, J=J), 5)
+        b_ms, b_by = bound(n_arrays * Q * A * 4, 0)
+        log("%s %s Q=%d A=%d J=%d (%s): equal; kernel %.4f ms, plain %.3f "
+            "ms, bound %.4f ms (%s)" % ("B3" if name == "peak" else "B4",
+                                        name, Q, A, J, what, ms, pms, b_ms,
+                                        b_by))
+        o = out.setdefault(name, {})
+        o["max_abs_err"] = max(err, o.get("max_abs_err", 0))
+        o.update({"ms" + sfx: ms, "plain_ms" + sfx: pms,
+                  "bound_ms" + sfx: b_ms})
+        if not sfx:
+            o.update(bound_by=b_by, shape="Q=%d A=%d" % (Q, A))
+
+
+def log_rungs(phase, rungs, path_bound):
+    for name in ("peak", "minrank"):
+        log("%s %s launches by anchor rung A: %s; summed bound %.4f ms"
+            % (phase, name, json.dumps(rungs.get(name, {})),
+               path_bound.get(name, 0.0)))
+
+
+def ringprop_rungs(launches_by_shape):
+    """{name: {A: launches}} of B3 / B4 and the path's summed bound (ms)
+    from _ext.LAUNCH_SHAPES."""
+    rungs, bnd = {}, {}
+    for (name, Q, A), n in sorted(launches_by_shape.items()):
+        rungs.setdefault(name, {})[A] = n
+        bnd[name] = bnd.get(name, 0.0) + n * bound(
+            (4 if name == "peak" else 3) * Q * A * 4, 0)[0]
+    return rungs, bnd
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +544,7 @@ def realistic_mmcov(dev, workdir):
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = dict(_ext.LAUNCHES)
+    rungs, path_bound = ringprop_rungs(_ext.LAUNCH_SHAPES)
     peak_mem = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise AssertionError("mmcov returned %d" % rc)
@@ -479,6 +562,7 @@ def realistic_mmcov(dev, workdir):
             stats["host_fixed_rows"], stats["host_only_parts"]))
     log("kernel launches %s; max_memory_allocated %d bytes (%.2f GB)"
         % (launches, peak_mem, peak_mem / 1e9))
+    log_rungs("phase 5", rungs, path_bound)
     check_reader(stats, "phase 5")
     if len(rows) != n_q:
         raise AssertionError("mmcov printed %d rows for %d queries"
@@ -519,7 +603,7 @@ def realistic_mmcov(dev, workdir):
     log("phase 5 device time per kernel (torch.profiler, one more run, "
         "%.1f s): %s" % (time.time() - t, json.dumps(
             {k: round(v, 3) for k, v in sorted(dev_ms.items())})))
-    return launches, dev_ms
+    return launches, dev_ms, (rungs, path_bound)
 
 
 # ---------------------------------------------------------------------------
@@ -708,6 +792,7 @@ def hpc_filter_run(dev, workdir):
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = dict(_ext.LAUNCHES)
+    rungs, path_bound = ringprop_rungs(_ext.LAUNCH_SHAPES)
     if rc != 0:
         raise AssertionError("mmcov -H returned %d" % rc)
     with open(stats_path) as f:
@@ -722,6 +807,7 @@ def hpc_filter_run(dev, workdir):
             stats["device_calls"], stats["retry_steps"],
             stats["flag_counts"].get("1", 0), stats["flag_counts"],
             stats["host_fixed_rows"], stats["host_only_parts"], launches))
+    log_rungs("phase 7", rungs, path_bound)
     check_reader(stats, "phase 7")
     if len(rows) != len(queries):
         raise AssertionError("mmcov -H printed %d rows for %d queries"
@@ -760,7 +846,7 @@ def hpc_filter_run(dev, workdir):
                              % (len(bad), len(pick), bad[0]))
     log("%d sampled HPC rows (%d control-derived) equal the host spec "
         "(host spec %.1f s)" % (len(pick), N_CONTROL, time.time() - t))
-    return launches
+    return launches, (rungs, path_bound)
 
 
 def main():
@@ -819,7 +905,7 @@ def main():
     workdir = tempfile.mkdtemp(prefix="longqc_smoke_")
     try:
         t = time.time()
-        launches, dev_ms = realistic_mmcov(dev, workdir)
+        launches, dev_ms, rungs5 = realistic_mmcov(dev, workdir)
         log("phase 5 %.1f s" % (time.time() - t))
         t = time.time()
         ext_res, ext_launches = check_extend(dev)
@@ -827,7 +913,7 @@ def main():
         launches.update(ext_launches)
         log("phase 6 %.1f s" % (time.time() - t))
         t = time.time()
-        hpc_launches = hpc_filter_run(dev, workdir)
+        hpc_launches, rungs7 = hpc_filter_run(dev, workdir)
         log("phase 7 %.1f s" % (time.time() - t))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -842,12 +928,18 @@ def main():
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_us": r["bound_ms"] * 1e3, "bound_by": r["bound_by"],
                  "library_ms": None, "shape": r["shape"]}
-        if "kernel_alone_ms" in r:
-            entry["kernel_alone_ms"] = r["kernel_alone_ms"]
+        entry.update({key: val for key, val in r.items()
+                      if key == "kernel_alone_ms"
+                      or key.startswith(("ms_", "plain_ms_", "bound_ms_"))})
         if name in MMCOV_KERNELS:
             entry["device_ms_phase5"] = dev_ms.get(name, 0.0)
         if name in HPC_KERNELS:
             entry["launches_hpc_filter"] = hpc_launches[name]
+        for phase, (rungs, path_bound) in (("phase5", rungs5),
+                                           ("hpc_filter", rungs7)):
+            if name in rungs:
+                entry["launches_by_A_" + phase] = rungs[name]
+                entry["path_bound_ms_" + phase] = path_bound[name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

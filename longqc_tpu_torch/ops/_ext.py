@@ -11,7 +11,8 @@ source or a flag changed.
 Each binding launches on the current stream of its tensors' device and
 raises on a launch error. LAUNCHES counts kernel launches per kernel
 name, incremented by each wrapper right where it launches (and nowhere
-else), so a run can show that its main path went through the kernels.
+else), so a run can show that its main path went through the kernels;
+LAUNCH_SHAPES counts the B3 / B4 launches by row shape.
 """
 
 import glob
@@ -28,12 +29,15 @@ CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a",
               "--fmad=false"]
 
 LAUNCHES = Counter()
+# launches by (kernel name, Q, A) of the kernels that count their shapes
+LAUNCH_SHAPES = Counter()
 
 _lib = None
 
 
 def reset_launches():
     LAUNCHES.clear()
+    LAUNCH_SHAPES.clear()
 
 
 def nvcc_path():

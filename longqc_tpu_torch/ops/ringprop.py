@@ -1,21 +1,25 @@
 """B3 peak pass and B4 min-rank pass over the chain-DP parent forest.
 
-The chain fill links each anchor to a parent at most J anchors back on
-unflagged rows (1 <= i - p[i] <= J), which bounds the two
-pointer-chasing passes of chain extraction:
+For each (Q, A) row-major int32 row and any window J from 1 to A:
 
   * peak (forward):   peak[i] = peak[p[i]] when v[i] > f[i] (the walk
-    `while f[j] < v[j]: j = p[j]` of chain.c:96-99), else i.
+    `while f[j] < v[j]: j = p[j]` of chain.c:96-99), p[i] >= 0 and
+    1 <= i - p[i] <= J; -1 when the walk applies but p[i] >= i; else i.
   * min-rank (backward): r[i] = min(own_rank[i], min over j in (i, i+J]
     with p[j] == i of r[j]) — ops/chainsel's closed form of the greedy
     backtrack (INF32 = on no candidate chain's path).
 
+A parent outside [i-J, i) reads as the TPU kernels' empty ring slot:
+-1 (p >= i) or i (p < i - J) for peak, no edge for min-rank. The chain
+fill links each anchor to a parent at any distance back, so the engine
+calls both passes with J = A.
+
 `peak_pass` / `minrank_pass` launch csrc/ringprop.cu on CUDA tensors
-(ports of longqc_tpu/ops/ringprop.peak_pass / minrank_pass) and run the
-plain versions on CPU tensors. Layout is (Q, A) row-major int32. A
-parent outside the J window reads as the TPU kernels' empty ring slot:
-rows with such parents are flagged by the chain fill and recomputed
-by the host spec.
+(ports of longqc_tpu/ops/ringprop.peak_pass / minrank_pass: one block
+per row, the row walked in chunks staged in shared memory, each chunk
+resolved by pointer jumping / doubling rounds; the source note says
+how) and run the plain versions on CPU tensors. Each launch counts in
+`_ext.LAUNCHES` and, by (name, Q, A), in `_ext.LAUNCH_SHAPES`.
 """
 
 import torch
@@ -23,6 +27,8 @@ import torch
 from longqc_tpu_torch.ops import _ext
 
 INF32 = 0x7FFFFFFF
+MAX_A = 1 << 20         # B4 keeps a pending bit per anchor of the row in
+                        # shared memory (csrc/ringprop.cu)
 
 
 def _same_shape(first, *rest):
@@ -40,6 +46,7 @@ def peak_pass(f, v, p, *, J=64):
     out = torch.empty_like(ins[0])
     lib = _ext.lib()
     _ext.LAUNCHES["peak"] += 1
+    _ext.LAUNCH_SHAPES["peak", out.shape[0], out.shape[1]] += 1
     lib.peak_pass(*ins, out, J)
     return out
 
@@ -51,9 +58,13 @@ def minrank_pass(p, own_rank, *, J=64):
     ins = [t.contiguous() for t in (p, own_rank)]
     _ext.require_cuda(*ins)
     _same_shape(*ins)
+    if ins[0].shape[1] > MAX_A:
+        raise ValueError("minrank_pass takes rows of at most %d anchors"
+                         % MAX_A)
     out = torch.empty_like(ins[0])
     lib = _ext.lib()
     _ext.LAUNCHES["minrank"] += 1
+    _ext.LAUNCH_SHAPES["minrank", out.shape[0], out.shape[1]] += 1
     lib.minrank_pass(*ins, out, J)
     return out
 

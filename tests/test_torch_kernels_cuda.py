@@ -105,6 +105,42 @@ def test_chain_and_ringprop_kernels_match_plain(dev, dense, tables):
                        rp.minrank_pass_plain(p, own, J=A))
 
 
+def _hard_forest_rows(case, rng, Q, A):
+    """(Q, A) f / v / p / own: a path of depth A (p[i] = i - 1, the
+    deepest anchor smallest), garbage parents (anywhere in [-1, A)) or
+    links up to 768 back (past J = 256)."""
+    ii = np.arange(A)
+    f = rng.randint(1, 200, (Q, A))
+    v = f + (rng.rand(Q, A) < 0.8) * rng.randint(1, 40, (Q, A))
+    own = np.where(rng.rand(Q, A) < 0.1, rng.randint(0, 5000, (Q, A)),
+                   rp.INF32)
+    if case == "path":
+        p = np.broadcast_to(ii - 1, (Q, A))
+        v = f + 1
+        own[::2] = A - ii
+    elif case == "garbage":
+        p = rng.randint(-1, A, (Q, A))
+    else:
+        p = np.maximum(ii - rng.randint(1, 769, (Q, A)), -1)
+    return [torch.from_numpy(np.ascontiguousarray(a).astype(np.int32))
+            for a in (f, v, p, own)]
+
+
+@pytest.mark.parametrize("J", ["A", "256"])
+@pytest.mark.parametrize("case", ["path", "garbage", "far"])
+def test_ringprop_kernels_match_plain_on_hard_rows(dev, case, J):
+    # rows longer than the kernels' 4096-anchor chunk and not a multiple
+    # of it, so chains cross chunks and the last chunk is partial
+    Q, A = 16, 10000
+    J = A if J == "A" else int(J)
+    f, v, p, own = (t.to(dev) for t in _hard_forest_rows(
+        case, np.random.RandomState(len(case)), Q, A))
+    assert torch.equal(rp.peak_pass(f, v, p, J=J),
+                       rp.peak_pass_plain(f, v, p, J=J))
+    assert torch.equal(rp.minrank_pass(p, own, J=J),
+                       rp.minrank_pass_plain(p, own, J=J))
+
+
 def _ext_pairs(rng, B, Lq, Lt):
     """Related pairs (10% substitutions, a deletion), unrelated pairs
     (Z-drop fires) and unequal lengths, some past the arrays' width."""
