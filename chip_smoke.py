@@ -10,11 +10,17 @@ prints the final result line):
      device -> fail
   2. build the five kernels (B1 sketch, B2 chain fill, B3 peak,
      B4 min-rank, B5 extension) from longqc_tpu_torch/csrc, and the
-     port's FASTA/FASTQ reader (csrc/fastx_native.cpp, g++ -O3)
+     port's FASTA/FASTQ reader (csrc/fastx_native.cpp, g++ -O3); the
+     registers, stack frame and spills of every B1 instance (one more
+     `nvcc -Xptxas -v` of csrc/sketch.cu alone)
   3. B1-B4 against their plain PyTorch versions on the card, at
      production shapes, with exact equality (tolerance 0: all outputs
      are integers): B1 on 256 x 8192 and 32 x 65536 tiles of reads with
-     (AT)n and N runs longer than its column chunk; B2 twice (with the
+     (AT)n and N runs longer than its column chunk, in its four
+     variants: u32 hashes (k=12 w=5), u64 hashes (k=19 w=10, int64
+     hashes past 2^31 present), and on the 256 x 8192 tile the run-time
+     ring (w=40 and w=255) with u32 (k=12) and u64 (k=19) hashes; B2
+     twice (with the
      one gap-penalty table of the plain engine, row stride 0, and with
      one table per row, as the HPC engine gives it) on rows whose
      windows run deeper than 256 ages, with the ages each anchor scans;
@@ -24,7 +30,9 @@ prints the final result line):
      parents past J) with J = A and J = 256; both times and each
      kernel's bound printed
   4. small end to end: the engine's rows on the card equal the port's
-     host spec (overlap_host.overlap_run)
+     host spec (overlap_host.overlap_run), at k=12 w=5 and, so that the
+     run-time-ring B1 variants run on a path, at w=40 with k=12 and
+     k=19
   5. realistic `mmcov` run through longqc_tpu_torch.cli.main at the
      ont-ligation sample configuration (k=12 w=5 -p 160 -q 160 -l 0):
      10 Mbp genome, 20,000 target reads of 1-8 kbp (~9x), 5,000
@@ -48,8 +56,12 @@ prints the final result line):
      rows (<= 5%), the filter marking every control-derived query and
      no other, and the rows of every control-derived query and 32
      random others against the host spec
-Kernel launch counts are reset just before each path (phases 5, 6, 7)
-and read just after it. Each kernel's bound is the larger of its bytes
+  8. the pb-hifi fast preset through cli.main (mmcov -k 19 -w 10 -p 80
+     -q 160 -l 0: wide hashes on int64 lanes, the u64 B1): 10 Mbp
+     genome, 6,000 target reads of 10-20 kbp (~9x), err 0.01, 5,000
+     queries; checks and prints as phase 5, the u32 B1 not launched
+Kernel launch counts are reset just before each path (phase 4's three
+runs, phases 5, 6, 7, 8) and read just after it. Each kernel's bound is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and
 its integer operations (counted from this run's data) over 67 T/s, the
 card's 32-bit rate outside the tensor cores. The line before the last
@@ -63,6 +75,7 @@ import io
 import json
 import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -71,12 +84,22 @@ import time
 from contextlib import redirect_stdout
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-N_TARGETS = 20000       # target reads of the realistic run
 N_QUERIES = 5000        # the sampleqc default -n
 
+# the two all-vs-sample runs through cli.main
+ONT_RUN = dict(
+    phase="phase 5", k=12, w=5, p=160, q=160, seed=2024, n_targets=20000,
+    min_len=1000, max_len=8000, err=0.12, junk=0.1, prefix="",
+    kernels=("sketch", "chain", "peak", "minrank"))
+HIFI_RUN = dict(
+    phase="phase 8", k=19, w=10, p=80, q=160, seed=1919, n_targets=6000,
+    min_len=10000, max_len=20000, err=0.01, junk=0.02, prefix="hifi_",
+    kernels=("sketch_u64", "chain", "peak", "minrank"))
+
+B1 = ("longqc_tpu_torch/csrc/sketch.cu",
+      "longqc_tpu/ops/sketch_pallas.py:312")
 SOURCES = {
-    "sketch": ("longqc_tpu_torch/csrc/sketch.cu",
-               "longqc_tpu/ops/sketch_pallas.py:312"),
+    "sketch": B1, "sketch_u64": B1, "sketch_ring": B1, "sketch_ring_u64": B1,
     "chain": ("longqc_tpu_torch/csrc/chain.cu",
               "longqc_tpu/ops/chain_pallas.py:293"),
     "peak": ("longqc_tpu_torch/csrc/ringprop.cu",
@@ -88,15 +111,15 @@ SOURCES = {
     "extd": ("longqc_tpu_torch/csrc/extend.cu",
              "longqc_tpu/ops/extend_pallas.py:192"),
 }
-MMCOV_KERNELS = ("sketch", "chain", "peak", "minrank")
 HPC_KERNELS = ("chain", "peak", "minrank")
-# CUDA kernel symbol prefix -> kernel name (the profiler's key)
-SYMBOLS = {"lq_sketch": "sketch", "lq_chain": "chain", "lq_peak": "peak",
-           "lq_minrank": "minrank"}
+# CUDA kernel symbol prefix -> kernel name (the profiler's key); the B1
+# variants are told apart by their template arguments (b1_variant)
+SYMBOLS = {"lq_chain": "chain", "lq_peak": "peak", "lq_minrank": "minrank"}
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory
 INT_OPS_S = 67e12       # 32-bit operations outside the tensor cores
 # integer operations of the function per unit of work (see PERF.md)
-OPS_PER_COLUMN = 30     # B1, plus 2 per ring slot
+OPS_PER_COLUMN = 30     # B1, plus 2 per ring slot (counted alike for
+#                         32- and 64-bit hash words)
 OPS_PER_AGE = 20        # B2, per predecessor the reference visits
 OPS_PER_CELL = {"extz": 12, "extd": 18}   # B5, per band cell
 
@@ -150,6 +173,66 @@ def require_equal(name, a, b):
     return err
 
 
+def b1_variant(symbol):
+    """LAUNCHES name of a B1 instance from its kernel symbol, demangled
+    (`lq_sketch_chunks_kernel<unsigned long, 16, false>`) or mangled
+    (`...kernelImLi16ELb0EE...`); None for any other symbol."""
+    m = re.search(r"lq_sketch_chunks_kernel<unsigned (int|long), (\d+)",
+                  symbol)
+    if m:
+        u64, wm = m.group(1) == "long", int(m.group(2))
+    else:
+        m = re.search(r"lq_sketch_chunks_kernelI([jm])Li(\d+)E", symbol)
+        if not m:
+            return None
+        u64, wm = m.group(1) == "m", int(m.group(2))
+    return ("sketch" + ("_ring" if wm > 32 else "")
+            + ("_u64" if u64 else ""))
+
+
+def sketch_resources():
+    """Registers, stack frame and spill bytes of every B1 instance, from
+    `nvcc -Xptxas -v` on csrc/sketch.cu alone with the extension's
+    flags. {(variant, ring slots): {...}}, printed."""
+    from longqc_tpu_torch.ops import _ext
+    src = os.path.join(_ext.CSRC, "sketch.cu")
+    with tempfile.TemporaryDirectory(prefix="longqc_ptxas_") as tmp:
+        out = subprocess.run(
+            [_ext.nvcc_path(), "-std=c++17", "-Xptxas=-v", "-c", src, "-o",
+             os.path.join(tmp, "sketch.o")] + _ext.CUDA_FLAGS,
+            capture_output=True, text=True)
+    if out.returncode != 0:
+        raise AssertionError("nvcc -Xptxas -v failed: %s" % out.stderr[-2000:])
+    res, cur = {}, None
+    for line in out.stderr.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            sym = m.group(1)
+            wm = re.search(r"Li(\d+)E", sym)
+            cur = (b1_variant(sym), int(wm.group(1))) if wm else None
+            continue
+        if cur is None or cur[0] is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            res.setdefault(cur, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            res.setdefault(cur, {})["registers"] = int(m.group(1))
+    if len(res) != 12 or not all(len(v) == 4 for v in res.values()):
+        raise AssertionError("expected 12 B1 instances in ptxas' output, "
+                             "got %s" % sorted(res))
+    for (name, wm), v in sorted(res.items()):
+        log("B1 %s, %d ring slots: %d registers, %d bytes stack frame, "
+            "spills %d / %d bytes (stores / loads)"
+            % (name, wm, v["registers"], v["stack"], v["spill_stores"],
+               v["spill_loads"]))
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 
@@ -170,15 +253,22 @@ def synth_part(rng, n, lo, hi):
     return reads
 
 
-def check_sketch(dev, k, w):
+def check_sketch(dev, k, w, tiles=((256, 8192, 200, 3000),
+                                  (32, 65536, 4000, 20000))):
+    """The B1 variant that (k, w) selects against the plain version on
+    tiles of (R, W, shortest, longest read); times, and the bound, of
+    the first tile."""
     import torch
     from longqc_tpu_torch.engine import device_index as di
     from longqc_tpu_torch.ops import _ext
     from longqc_tpu_torch.ops import sketch_cuda as skc
 
     rng = random.Random(5)
-    out = {}
-    for R, W, lo, hi in ((256, 8192, 200, 3000), (32, 65536, 4000, 20000)):
+    name = skc.kernel_name(k, w)
+    chunk = skc.chunk_width(w)
+    hbytes = 8 if skc.is_wide(k) else 4
+    first = None
+    for R, W, lo, hi in tiles:
         b = di._TileBuilder(R, W, max(w - 1, 1))
         gid = 0
         while len(b.rows) < R:
@@ -186,7 +276,7 @@ def check_sketch(dev, k, w):
                 b.add(gid, r[1])
                 gid += 1
         n_run = sum(1 for row in b.rows[:R] for _, sq in row
-                    if "N" * 129 in sq or "AT" * 65 in sq)
+                    if "N" * (chunk + 1) in sq or "AT" * (chunk // 2 + 1) in sq)
         tile = b.tiles()[0]
         words = [di.to_device_words(a, dev) for a in
                  (tile.codes2, tile.nmask, tile.startmask, tile.endmask)]
@@ -195,37 +285,70 @@ def check_sketch(dev, k, w):
         kern = skc.sketch_tiles(*args, W=W, k=k, w=w)
         plain = skc.sketch_tiles_plain(*args, W=W, k=k, w=w)
         torch.cuda.synchronize()
-        err = require_equal("sketch emit %dx%d" % (R, W), kern["emit"],
+        err = require_equal("%s emit %dx%d" % (name, R, W), kern["emit"],
                             plain["emit"])
         on = plain["emit"] > 0
         for f in ("hash", "rid", "pos", "strand"):
-            err = max(err, require_equal("sketch %s %dx%d" % (f, R, W),
+            if kern[f].dtype != plain[f].dtype:
+                raise AssertionError("%s %s: %s, plain %s" % (
+                    name, f, kern[f].dtype, plain[f].dtype))
+            err = max(err, require_equal("%s %s %dx%d" % (name, f, R, W),
                                          kern[f][on], plain[f][on]))
+        if not int(on.sum()):
+            raise AssertionError("%s %dx%d: no emission" % (name, R, W))
+        n_big = 0
+        if skc.is_wide(k):
+            n_big = int((kern["hash"][on] > 1 << 31).sum())
+            if kern["hash"].dtype != torch.int64 or not n_big:
+                raise AssertionError("%s: no int64 hash above 2^31" % name)
         ms = cuda_ms(lambda: skc.sketch_tiles(*args, W=W, k=k, w=w), 5)
         pms = cuda_ms(lambda: skc.sketch_tiles_plain(*args, W=W, k=k, w=w),
                       2)
-        b_ms, b_by = bound(nbytes(*args) + 5 * R * W * 4,
+        b_ms, b_by = bound(nbytes(*args) + R * W * (4 * 4 + hbytes),
                            R * W * (OPS_PER_COLUMN + 2 * w))
         # the wrapper's two parts: the chunk plan (tensor ops) and the
         # kernel launch alone on that plan
         plan_ms = cuda_ms(lambda: skc.chunk_plan(*args[:3], W=W, k=k, w=w,
-                                                 chunk=skc.CHUNK), 5)
-        plan = skc.chunk_plan(*args[:3], W=W, k=k, w=w, chunk=skc.CHUNK)
-        outs = [torch.zeros((R, W), dtype=torch.int32, device=dev)
-                for _ in range(5)]
+                                                 chunk=chunk), 5)
+        plan = skc.chunk_plan(*args[:3], W=W, k=k, w=w, chunk=chunk)
+        outs = [torch.zeros((R, W), dtype=kern[f].dtype, device=dev)
+                for f in ("emit", "hash", "rid", "pos", "strand")]
         lib = _ext.lib()
         k_ms = cuda_ms(lambda: lib.sketch_rows(*args, plan, *outs, W, k, w,
-                                               skc.CHUNK), 5)
-        log("B1 sketch %dx%d: equal (%d emissions; %d reads with an N or "
-            "(AT)n run longer than the %d-column chunk); wrapper %.3f ms "
-            "(plan %.3f ms, kernel alone %.3f ms), plain %.3f ms, bound "
-            "%.4f ms (%s)"
-            % (R, W, int(plain["emit"].sum()), n_run, skc.CHUNK, ms,
-               plan_ms, k_ms, pms, b_ms, b_by))
-        out.setdefault("sketch", dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                      bound_ms=b_ms, bound_by=b_by,
-                                      kernel_alone_ms=k_ms,
-                                      shape="%dx%d" % (R, W)))
+                                               chunk), 5)
+        log("B1 %s k=%d w=%d %dx%d: equal (%d emissions, %d hashes above "
+            "2^31; %d reads with an N or (AT)n run longer than the "
+            "%d-column chunk); wrapper %.3f ms (plan %.3f ms, kernel alone "
+            "%.3f ms), plain %.3f ms, bound %.4f ms (%s), library_ms null"
+            % (name, k, w, R, W, int(plain["emit"].sum()), n_big, n_run,
+               chunk, ms, plan_ms, k_ms, pms, b_ms, b_by))
+        if first is None:
+            first = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                         bound_by=b_by, kernel_alone_ms=k_ms, plan_ms=plan_ms,
+                         shape="%dx%d k=%d w=%d" % (R, W, k, w))
+        else:
+            first["max_abs_err"] = max(first["max_abs_err"], err)
+            sfx = "_%dx%d" % (R, W)
+            first.update({"ms" + sfx: ms, "plain_ms" + sfx: pms,
+                          "bound_ms" + sfx: b_ms,
+                          "kernel_alone_ms" + sfx: k_ms})
+    return name, first
+
+
+def check_sketch_variants(dev):
+    """Phase 3's B1 runs: {LAUNCHES name: result}; the run-time ring's
+    w = 255 times ride under keys suffixed _w255."""
+    out = {}
+    for k, w in ((12, 5), (19, 10)):
+        name, r = check_sketch(dev, k, w)
+        out[name] = r
+    for k in (12, 19):
+        name, r = check_sketch(dev, k, 40, tiles=((256, 8192, 200, 3000),))
+        _, r255 = check_sketch(dev, k, 255, tiles=((256, 8192, 200, 3000),))
+        r["max_abs_err"] = max(r["max_abs_err"], r255["max_abs_err"])
+        r.update({key + "_w255": r255[key] for key in
+                  ("ms", "plain_ms", "bound_ms", "kernel_alone_ms")})
+        out[name] = r
     return out
 
 
@@ -435,32 +558,53 @@ def ringprop_rungs(launches_by_shape):
 # phases 4 and 5
 
 
-def small_end_to_end(dev):
+def small_end_to_end(dev, k=12, w=5, err=0.12):
+    """150 reads of a 30 kbp genome, 40 of them queries: the engine's
+    rows on the card against the host spec. Returns the launch counts
+    of the engine's run (the B1 variant of (k, w) must be among them)."""
     import numpy as np
+    import torch
     from util_synth import make_genome, sample_reads
     from longqc_tpu_torch.config import FltOpt, IndexOpt, MapOpt, \
         OverlapConfig
     from longqc_tpu_torch.engine import overlap_host as oh
     from longqc_tpu_torch.engine.device_overlap import DeviceOverlapEngine
+    from longqc_tpu_torch.ops import _ext
+    from longqc_tpu_torch.ops.sketch_cuda import kernel_name
 
     rng = np.random.RandomState(11)
     genome = make_genome(rng, 30000)
     reads = sample_reads(rng, genome, 150, min_len=700, max_len=2200,
-                         err=0.12, junk_frac=0.1)
+                         err=err, junk_frac=0.1)
     queries = reads[:40]
-    cfg = OverlapConfig(index=IndexOpt(k=12, w=5),
+    cfg = OverlapConfig(index=IndexOpt(k=k, w=w),
                         map=MapOpt(min_score_med=80, min_score_good=160),
                         flt=FltOpt(min_ovlp=0))
     rows_host = oh.overlap_run(list(reads), queries, cfg)
+    torch.cuda.synchronize()
+    _ext.reset_launches()
     eng = DeviceOverlapEngine(cfg, queries, device=dev)
     rows_dev = eng.run(list(reads))
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
     bad = [i for i, (a, b) in enumerate(zip(rows_host, rows_dev)) if a != b]
     if bad or len(rows_dev) != len(rows_host):
-        raise AssertionError("small end to end: %d rows differ from the "
-                             "host spec" % len(bad))
-    log("small end to end: %d rows equal the host spec (%d step calls, "
-        "%d host-fixed)" % (len(rows_dev), eng.n_device_calls,
-                            eng.n_host_fallback))
+        raise AssertionError("small end to end k=%d w=%d: %d rows differ "
+                             "from the host spec" % (k, w, len(bad)))
+    covered = sum(1 for r in rows_dev if r.split("\t")[3] != "0")
+    log("small end to end k=%d w=%d err=%.2f: %d rows equal the host spec "
+        "(%d with reliable regions, %d step calls, %d host-fixed); "
+        "launches %s" % (k, w, err, len(rows_dev), covered,
+                         eng.n_device_calls, eng.n_host_fallback, launches))
+    b1 = kernel_name(k, w)
+    if set(n for n in launches if n.startswith("sketch")) != {b1}:
+        raise AssertionError("small end to end k=%d w=%d must sketch with "
+                             "%s only: %s" % (k, w, b1, launches))
+    if not covered or eng.n_host_fallback:
+        raise AssertionError("small end to end k=%d w=%d: %d covered rows, "
+                             "%d host-fixed" % (k, w, covered,
+                                                eng.n_host_fallback))
+    return launches
 
 
 def write_fastq(path, reads):
@@ -483,9 +627,10 @@ def check_reader(stats, phase):
     return rd
 
 
-def kernel_device_ms(argv):
+def kernel_device_ms(argv, kernels):
     """Total device milliseconds per kernel over one more run of `argv`,
-    from torch.profiler's key_averages (fails when it shows none)."""
+    from torch.profiler's key_averages (fails unless it shows device
+    time for exactly `kernels`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from longqc_tpu_torch import cli
@@ -496,16 +641,20 @@ def kernel_device_ms(argv):
             torch.cuda.synchronize()
     tot = {}
     for ev in prof.key_averages():
-        name = next((n for p, n in SYMBOLS.items() if p in ev.key), None)
+        name = b1_variant(ev.key) or next(
+            (n for p, n in SYMBOLS.items() if p in ev.key), None)
         if name:
             tot[name] = tot.get(name, 0.0) + ev.device_time_total / 1e3
-    if set(tot) != set(MMCOV_KERNELS) or not all(tot.values()):
-        raise AssertionError("the profiler shows no device time for some "
-                             "kernel of the path: %s" % tot)
+    if set(tot) != set(kernels) or not all(tot.values()):
+        raise AssertionError("the profiler must show device time for %s "
+                             "and no other kernel of the port: %s"
+                             % (kernels, tot))
     return tot
 
 
-def realistic_mmcov(dev, workdir):
+def realistic_mmcov(dev, workdir, run):
+    """One all-vs-sample run (ONT_RUN or HIFI_RUN) through cli.main.
+    Returns (launches, device ms per kernel, B3 / B4 rungs and bound)."""
     import numpy as np
     import torch
     from util_synth import make_genome_fast, sample_reads_fast
@@ -515,25 +664,32 @@ def realistic_mmcov(dev, workdir):
     from longqc_tpu_torch.engine import overlap_host as oh
     from longqc_tpu_torch.ops import _ext
 
+    phase, k, w = run["phase"], run["k"], run["w"]
     t = time.time()
-    rng = np.random.RandomState(2024)
+    rng = np.random.RandomState(run["seed"])
     genome = make_genome_fast(rng, 10_000_000)
-    targets = sample_reads_fast(rng, genome, N_TARGETS, min_len=1000,
-                                max_len=8000, err=0.12, junk_frac=0.1)
+    targets = sample_reads_fast(rng, genome, run["n_targets"],
+                                min_len=run["min_len"],
+                                max_len=run["max_len"], err=run["err"],
+                                junk_frac=run["junk"])
     n_q = N_QUERIES
     queries = targets[:n_q]
-    tpath = os.path.join(workdir, "targets.fq")
-    qpath = os.path.join(workdir, "queries.fq")
+    tname = run["prefix"] + "targets.fq"
+    qname = run["prefix"] + "queries.fq"
+    tpath = os.path.join(workdir, tname)
+    qpath = os.path.join(workdir, qname)
+    stats_path = os.path.join(workdir, run["prefix"] + "stats.json")
     write_fastq(tpath, targets)
     write_fastq(qpath, queries)
     tbp = sum(len(r[1]) for r in targets)
-    log("realistic data: %d targets (%d bp, %.2fx of 10 Mbp), %d queries, "
-        "made in %.1f s" % (N_TARGETS, tbp, tbp / 1e7, n_q,
-                            time.time() - t))
+    log("%s data: %d targets of %d-%d bp (%d bp, %.2fx of 10 Mbp), err "
+        "%.2f, junk %.2f, %d queries, made in %.1f s"
+        % (phase, run["n_targets"], run["min_len"], run["max_len"], tbp,
+           tbp / 1e7, run["err"], run["junk"], n_q, time.time() - t))
 
-    argv = ["mmcov", "-k", "12", "-w", "5", "-p", "160", "-q", "160",
-            "-l", "0", "--device", str(dev), "--stats",
-            os.path.join(workdir, "stats.json"), tpath, qpath]
+    argv = ["mmcov", "-k", str(k), "-w", str(w), "-p", str(run["p"]), "-q",
+            str(run["q"]), "-l", "0", "--device", str(dev), "--stats",
+            stats_path, tpath, qpath]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _ext.reset_launches()
@@ -548,13 +704,13 @@ def realistic_mmcov(dev, workdir):
     peak_mem = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise AssertionError("mmcov returned %d" % rc)
-    with open(os.path.join(workdir, "stats.json")) as f:
+    with open(stats_path) as f:
         stats = json.load(f)
     rows = buf.getvalue().rstrip("\n").split("\n")
-    log("mmcov %s" % " ".join(argv[:-2] + ["targets.fq", "queries.fq"]))
-    log("mmcov wall %.2f s; phase_s %s" % (
-        wall, json.dumps({k: round(v, 3)
-                          for k, v in stats["phase_s"].items()})))
+    log("mmcov %s" % " ".join(argv[:-2] + [tname, qname]))
+    log("%s mmcov wall %.2f s; phase_s %s" % (
+        phase, wall, json.dumps({key: round(v, 3)
+                                 for key, v in stats["phase_s"].items()})))
     log("step calls %d, retry steps %d, F_KERNEL rows %d, flag counts "
         "%s, host-fixed rows %d, host-only parts %d" % (
             stats["device_calls"], stats["retry_steps"],
@@ -562,15 +718,21 @@ def realistic_mmcov(dev, workdir):
             stats["host_fixed_rows"], stats["host_only_parts"]))
     log("kernel launches %s; max_memory_allocated %d bytes (%.2f GB)"
         % (launches, peak_mem, peak_mem / 1e9))
-    log_rungs("phase 5", rungs, path_bound)
-    check_reader(stats, "phase 5")
+    log_rungs(phase, rungs, path_bound)
+    check_reader(stats, phase)
     if len(rows) != n_q:
         raise AssertionError("mmcov printed %d rows for %d queries"
                              % (len(rows), n_q))
-    for name in MMCOV_KERNELS:
+    for name in run["kernels"]:
         if not launches.get(name):
             raise AssertionError("kernel %s was not launched by the "
                                  "mmcov run" % name)
+    if set(launches) != set(run["kernels"]):
+        raise AssertionError("%s must launch %s and no other kernel: %s"
+                             % (phase, run["kernels"], launches))
+    if stats["host_only_parts"]:
+        raise AssertionError("%s: %d parts fell to the host path"
+                             % (phase, stats["host_only_parts"]))
     if launches["chain"] != stats["device_calls"]:
         raise AssertionError("%d step calls but %d B2 launches"
                              % (stats["device_calls"], launches["chain"]))
@@ -584,8 +746,8 @@ def realistic_mmcov(dev, workdir):
     # targets (the host spec's tensor sketch runs on the card too)
     pick = sorted(random.Random(7).sample(range(n_q), 32))
     cfg = OverlapConfig(
-        index=IndexOpt(k=12, w=5, batch_size=parse_num("4G")),
-        map=MapOpt(min_score_med=160, min_score_good=160,
+        index=IndexOpt(k=k, w=w, batch_size=parse_num("4G")),
+        map=MapOpt(min_score_med=run["p"], min_score_good=run["q"],
                    min_chain_score=40),
         flt=FltOpt(min_ovlp=0, min_coverage=3))
     t = time.time()
@@ -599,10 +761,10 @@ def realistic_mmcov(dev, workdir):
         % (time.time() - t))
 
     t = time.time()
-    dev_ms = kernel_device_ms(argv)
-    log("phase 5 device time per kernel (torch.profiler, one more run, "
-        "%.1f s): %s" % (time.time() - t, json.dumps(
-            {k: round(v, 3) for k, v in sorted(dev_ms.items())})))
+    dev_ms = kernel_device_ms(argv, run["kernels"])
+    log("%s device time per kernel (torch.profiler, one more run, "
+        "%.1f s): %s" % (phase, time.time() - t, json.dumps(
+            {key: round(v, 3) for key, v in sorted(dev_ms.items())})))
     return launches, dev_ms, (rungs, path_bound)
 
 
@@ -892,20 +1054,29 @@ def main():
                              "%s" % native.BUILD["error"])
     log("built the reader: %s (%.2f s)" % (native.BUILD["cmd"],
                                           native.BUILD["build_s"]))
+    t = time.time()
+    resources = sketch_resources()
+    log("B1 resources read in %.1f s" % (time.time() - t))
 
     # --- phase 3: kernels vs plain versions
-    k, w = 12, 5
-    res = check_sketch(dev, k, w)
-    res.update(check_chain_ringprop(dev, k))
+    t = time.time()
+    res = check_sketch_variants(dev)
+    log("phase 3, B1: %.1f s" % (time.time() - t))
+    res.update(check_chain_ringprop(dev, 12))
 
-    # --- phase 4: small end to end
+    # --- phase 4: small end to end; at w = 40 the run-time-ring B1
+    # variants sketch the index tiles and the queries
     small_end_to_end(dev)
+    ring_launches = {}
+    for k in (12, 19):
+        ring_launches.update(small_end_to_end(dev, k=k, w=40, err=0.04))
 
-    # --- phase 5: realistic mmcov run; phase 6: B5; phase 7: HPC filter
+    # --- phase 5: realistic mmcov run; phase 6: B5; phase 7: HPC filter;
+    # phase 8: the pb-hifi fast preset
     workdir = tempfile.mkdtemp(prefix="longqc_smoke_")
     try:
         t = time.time()
-        launches, dev_ms, rungs5 = realistic_mmcov(dev, workdir)
+        launches, dev_ms, rungs5 = realistic_mmcov(dev, workdir, ONT_RUN)
         log("phase 5 %.1f s" % (time.time() - t))
         t = time.time()
         ext_res, ext_launches = check_extend(dev)
@@ -915,10 +1086,18 @@ def main():
         t = time.time()
         hpc_launches, rungs7 = hpc_filter_run(dev, workdir)
         log("phase 7 %.1f s" % (time.time() - t))
+        t = time.time()
+        launches8, dev_ms8, rungs8 = realistic_mmcov(dev, workdir, HIFI_RUN)
+        log("phase 8 %.1f s" % (time.time() - t))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     log("total %.1f s" % (time.time() - t_all))
+    # each kernel's launches on its own path: phase 5, the u64 B1's
+    # phase 8, the run-time-ring B1s' small runs at w = 40, B5's phase 6
+    launches["sketch_u64"] = launches8["sketch_u64"]
+    for name in ("sketch_ring", "sketch_ring_u64"):
+        launches[name] = ring_launches[name]
     kernels = []
     for name, (src, rep) in SOURCES.items():
         r = res[name]
@@ -929,14 +1108,22 @@ def main():
                  "bound_us": r["bound_ms"] * 1e3, "bound_by": r["bound_by"],
                  "library_ms": None, "shape": r["shape"]}
         entry.update({key: val for key, val in r.items()
-                      if key == "kernel_alone_ms"
-                      or key.startswith(("ms_", "plain_ms_", "bound_ms_"))})
-        if name in MMCOV_KERNELS:
-            entry["device_ms_phase5"] = dev_ms.get(name, 0.0)
+                      if key.startswith(("ms_", "plain_ms_", "bound_ms_",
+                                         "kernel_alone_ms", "plan_ms"))})
+        if name.startswith("sketch"):
+            entry["resources"] = {
+                "%d slots" % wm: v for (n, wm), v in sorted(resources.items())
+                if n == name}
+        if name in ONT_RUN["kernels"]:
+            entry["device_ms_phase5"] = dev_ms[name]
+        if name in HIFI_RUN["kernels"]:
+            entry["launches_phase8"] = launches8[name]
+            entry["device_ms_phase8"] = dev_ms8[name]
         if name in HPC_KERNELS:
             entry["launches_hpc_filter"] = hpc_launches[name]
         for phase, (rungs, path_bound) in (("phase5", rungs5),
-                                           ("hpc_filter", rungs7)):
+                                           ("hpc_filter", rungs7),
+                                           ("phase8", rungs8)):
             if name in rungs:
                 entry["launches_by_A_" + phase] = rungs[name]
                 entry["path_bound_ms_" + phase] = path_bound[name]

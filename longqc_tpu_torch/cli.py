@@ -2,8 +2,9 @@
 
 Ported so far: `mmcov`, the overlap engine's debug surface (the
 minimap2-coverage binary CLI, minimap2-coverage.c:37-197), on its
-default path and with -H (HPC sketch, k <= 15: the spike-in-control
-filter run). `mmcov -z` and `-d`, wide hashes (2k > 30), and the
+default path (any k <= 28, so also the pb-hifi fast preset's wide
+hashes at k = 19, and any -w up to 255) and with -H (HPC sketch,
+k <= 15: the spike-in-control filter run). `mmcov -z` and `-d`, and the
 `sampleqc`, `runqc` and `help` subcommands of the JAX package are not
 ported yet.
 """

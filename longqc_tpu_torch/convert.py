@@ -22,13 +22,19 @@ def _t(a, dtype, device):
                             ).to(device)
 
 
+def _hash_lanes(a, device):
+    """Hash lanes keep their width: int64 (2k > 30) stays int64."""
+    a = np.asarray(a)
+    return _t(a, np.int64 if a.dtype == np.int64 else np.int32, device)
+
+
 def index_from_arrays(ih, irid, ips, mid_occ, device="cpu"):
-    """A flat JAX index (1-D int32 ih/irid/ips, scalar mid_occ) as the
-    port's index dict."""
+    """A flat JAX index (1-D ih, int32 or int64 for 2k > 30; int32 irid /
+    ips; scalar mid_occ) as the port's index dict."""
     ih = np.asarray(ih)
     if ih.ndim != 1:
         raise ValueError("only the flat (1-D) index layout is ported")
-    return {"ih": _t(ih, np.int32, device),
+    return {"ih": _hash_lanes(ih, device),
             "irid": _t(irid, np.int32, device),
             "ips": _t(ips, np.int32, device),
             "mid_occ": torch.tensor(int(np.asarray(mid_occ)),
@@ -39,9 +45,11 @@ def group_from_arrays(arrays, device="cpu"):
     """A JAX query group's staged arrays (GROUP_ARRAYS: qh, qps, qcnt,
     n_slots, n_exp, qlen, qvalid) and accumulators (STATE_ARRAYS: lam,
     lam2 int64; avgk_set, m_cnts int32) as port tensors; `arrays` maps
-    those names to numpy arrays. An HPC group also carries HPC_ARRAYS
-    (qspan int32, avgk_val float32)."""
+    those names to numpy arrays; qh keeps int64 lanes when it has
+    them. An HPC group also carries HPC_ARRAYS (qspan int32, avgk_val
+    float32)."""
     out = {n: _t(arrays[n], np.int32, device) for n in GROUP_ARRAYS}
+    out["qh"] = _hash_lanes(arrays["qh"], device)
     for n in STATE_ARRAYS:
         dt = np.int64 if n in ("lam", "lam2") else np.int32
         out[n] = _t(arrays[n], dt, device)

@@ -29,6 +29,10 @@ void check_launch(int code, const char* name) {
 void sketch_rows(T codes2, T nmask, T smask, T emask, T starts, T gids,
                  T plan, T emit, T hash, T rid, T pos, T strand, int64_t W,
                  int64_t k, int64_t w, int64_t CH) {
+  // int64 hash lanes (2k > 30) come with an int64 plan
+  const bool wide = hash.scalar_type() == at::kLong;
+  TORCH_CHECK(plan.scalar_type() == hash.scalar_type(),
+              "sketch: plan and hash must share one dtype");
   const c10::cuda::CUDAGuard guard(codes2.device());
   check_launch(
       lq_sketch_rows(codes2.data_ptr(), nmask.data_ptr(), smask.data_ptr(),
@@ -36,7 +40,7 @@ void sketch_rows(T codes2, T nmask, T smask, T emask, T starts, T gids,
                      plan.data_ptr(), emit.data_ptr(), hash.data_ptr(),
                      rid.data_ptr(), pos.data_ptr(), strand.data_ptr(),
                      (int)codes2.size(0), (int)W, (int)k, (int)w, (int)CH,
-                     (int)plan.size(1), stream_of(codes2)),
+                     (int)plan.size(1), wide ? 1 : 0, stream_of(codes2)),
       "sketch");
 }
 

@@ -1,7 +1,8 @@
 // Plain C launch interface of the hand-written kernels (sketch.cu,
 // chain.cu, ringprop.cu, extend.cu), bound to PyTorch by bind.cpp. Every
 // pointer is a contiguous int32 device buffer of the layout its .cu file
-// documents; each function launches on `stream` and returns the
+// documents (lq_sketch_rows with wide != 0: `plan` and `hash` are int64
+// buffers); each function launches on `stream` and returns the
 // cudaError_t of its launch (0 on success).
 #pragma once
 
@@ -13,7 +14,7 @@ int lq_sketch_rows(const void* codes2, const void* nmask, const void* smask,
                    const void* emask, const void* starts, const void* gids,
                    const void* plan, void* emit, void* hash, void* rid,
                    void* pos, void* strand, int R, int W, int k, int w,
-                   int CH, int NC, void* stream);
+                   int CH, int NC, int wide, void* stream);
 
 int lq_chain_fill(const void* axh, const void* axl, const void* aq,
                   const void* asp, const void* nb, const void* pen,

@@ -20,8 +20,14 @@ bit-identical duplicates (see engine/device_overlap).
 The port keeps only the flat index. A part past the top of the width
 ladder raises IndexOverflowError and is computed by the exact host
 spec; N_IDX_SIZES tops out at 2^26 entries (0.8 GB of int32 triples,
-a ~200 Mbp part at w = 5), which an 80 GB card holds with room to
+a ~200 Mbp part at w = 5; with 2k > 30 the hashes ride int64 lanes,
+512 MB of the then 1.07 GB), which an 80 GB card holds with room to
 spare, so the JAX package's hash-range-sharded layout is not needed.
+
+Hash lanes are int32 for 2k <= 30 and int64 above
+(`ops/sketch_cuda.hash_dtype`), each
+with its dtype's max as the empty-slot sentinel (`infk`), which sorts
+after every real hash; irid / ips are int32 either way.
 """
 
 from dataclasses import dataclass
@@ -31,7 +37,8 @@ import torch
 
 from longqc_tpu_torch.io.pack import SEQ_NT4_SKETCH
 from longqc_tpu_torch.ops.ringprop import INF32
-from longqc_tpu_torch.ops.sketch_cuda import READS_PER_ROW, sketch_tiles
+from longqc_tpu_torch.ops.sketch_cuda import (READS_PER_ROW, hash_dtype,
+                                              sketch_tiles)
 
 # single-pass encode tables: ASCII byte -> 2-bit code / ambiguity
 _CODE_OF = np.where(SEQ_NT4_SKETCH < 4, SEQ_NT4_SKETCH, 0).astype(np.uint8)
@@ -218,18 +225,25 @@ def to_device_words(a, device):
 # tile -> sorted chunk
 
 
+def infk(dtype):
+    """Hash sentinel of a lane dtype: its max (INF32 on int32 lanes,
+    int64 max on the wide-hash lanes)."""
+    return torch.iinfo(dtype).max
+
+
 def tile_flat(codes2, nmask, startmask, endmask, starts, gids, *, W, k, w):
     """Per-tile chunk: B1 sketch -> duplicate expansion -> single-key
-    sort. Returns (ih, irid, ips) sorted by hash with INF32 on empty
-    slots (R*W each) and n_exp_total. A row's expanded emissions never
-    exceed its W columns (one emission per window), so no row needs
-    re-running."""
+    sort. Returns (ih, irid, ips) sorted by hash with the sentinel
+    infk(hash_dtype(k)) on empty slots (R*W each) and n_exp_total. A
+    row's expanded emissions never exceed its W columns (one emission
+    per window), so no row needs re-running."""
     res = sketch_tiles(codes2, nmask, startmask, endmask, starts, gids,
                        W=W, k=k, w=w)
+    INFH = infk(hash_dtype(k))
     c2 = res["emit"]
-    h2 = torch.where(c2 > 0, res["hash"], INF32)
+    h2 = torch.where(c2 > 0, res["hash"], INFH)
     p2 = (res["pos"] << 1) | res["strand"]
-    eh, er, ep, n_exp_total = _expand_rows(h2, res["rid"], p2, c2, INF32)
+    eh, er, ep, n_exp_total = _expand_rows(h2, res["rid"], p2, c2, INFH)
     ih, irid, ips = sort_index(eh, er, ep)
     return ih, irid, ips, n_exp_total
 
@@ -295,7 +309,8 @@ def _merge_chunks(chunks, n_idx_sizes):
     eps = [c[2] for c in chunks]
     if n_slots < n_idx:
         pad = n_idx - n_slots
-        ehs.append(torch.full((pad,), INF32, dtype=torch.int32, device=dev))
+        hdt = ehs[0].dtype
+        ehs.append(torch.full((pad,), infk(hdt), dtype=hdt, device=dev))
         ers.append(torch.zeros(pad, dtype=torch.int32, device=dev))
         eps.append(torch.zeros(pad, dtype=torch.int32, device=dev))
     final = sort_index(torch.cat(ehs), torch.cat(ers), torch.cat(eps))
@@ -304,13 +319,14 @@ def _merge_chunks(chunks, n_idx_sizes):
 
 def runlen_sorted(ih):
     """Ascending per-key occurrence counts of the sorted hash array
-    (INF-padded past n_keys) and n_keys: run starts compact to the
-    front by sorting their positions; each run's length is the gap to
-    the next start (or to n_valid for the last run)."""
+    (padded with its dtype's sentinel past the real entries) and n_keys:
+    run starts compact to the front by sorting their positions; each
+    run's length is the gap to the next start (or to n_valid for the
+    last run)."""
     N = ih.shape[0]
-    BIG = INF32
+    BIG = INF32                # past every position (N <= 2^26)
     idx = torch.arange(N, dtype=torch.int64, device=ih.device)
-    valid = ih != INF32
+    valid = ih != infk(ih.dtype)
     prev = torch.cat([torch.full((1,), -1, dtype=ih.dtype,
                                  device=ih.device), ih[:-1]])
     is_start = valid & (ih != prev)
@@ -362,12 +378,9 @@ def build_device_index(part, k, w, *, device, ladder=TILE_LADDER,
                        n_idx_sizes=N_IDX_SIZES, mid_occ_fixed=0,
                        mid_occ_frac=2e-4):
     """Build the sorted device index for one part. Returns a dict with
-    ih/irid/ips (int32 tensors of width n_idx), mid_occ (0-d int32
-    tensor), n_idx and n_tiles. Raises IndexOverflowError when the
-    part does not fit the largest width."""
-    if 2 * k > 30:
-        raise NotImplementedError("wide hashes (2k > 30) are not ported "
-                                  "yet (ROADMAP: port queue item 1)")
+    ih (hash_dtype(k)) / irid / ips (int32) tensors of width n_idx,
+    mid_occ (0-d int32 tensor), n_idx and n_tiles. Raises
+    IndexOverflowError when the part does not fit the largest width."""
     tiles, jumbo = pack_part_tiles(part, w, ladder=ladder)
     tiles = tiles + jumbo
     results = [_run_tile(t, k, w, device) for t in tiles]

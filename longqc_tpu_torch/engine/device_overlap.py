@@ -189,7 +189,8 @@ def _count_expanded(ih, qh, qcnt, n_slots, mid_occ, *, mcrop=None):
     qcnt_c = qcnt[:, :mc]
     slot_on = _ar(mc, qh)[None, :] < n_slots[:, None]
     qs = torch.where(slot_on, qh_c, 0)
-    # right(q) == left(q + 1) for integer keys (hashes < 2^2k < INF32)
+    # right(q) == left(q + 1) for integer keys (hashes < 2^2k, below the
+    # sentinel of their lanes; ih and qh share one dtype)
     lr = torch.searchsorted(ih, torch.cat([qs, qs + 1], dim=1),
                             out_int32=True)
     left = lr[:, :mc]
@@ -610,7 +611,9 @@ def _group_valid(n_slots, n_exp, *, M, M2, n_real):
 
 def _compact_sketch(emit, hsh, pos, strand, *, M):
     """Per-row compaction of the sketch's (B, L) per-column output into
-    the first M emitting slots (position order)."""
+    the first M emitting slots (position order). The hashes keep their
+    lanes (int32, or int64 for 2k > 30 and under HPC); empty slots hold
+    the lanes' sentinel."""
     B, L = emit.shape
     has = emit > 0
     posl = torch.arange(L, dtype=_I32, device=emit.device).expand(B, L)
@@ -622,7 +625,8 @@ def _compact_sketch(emit, hsh, pos, strand, *, M):
     def take(a):
         return torch.where(slot_on, torch.gather(a, 1, order), 0)
 
-    qh = torch.where(slot_on, torch.gather(hsh, 1, order), INF32)
+    qh = torch.where(slot_on, torch.gather(hsh, 1, order),
+                     di.infk(hsh.dtype))
     return qh, take(pos), take(strand), take(emit), n
 
 
@@ -839,16 +843,11 @@ class DeviceOverlapEngine:
         production ladders; on the CPU (plain kernel twins, tests) the
         coarser A_BUCKETS and the small ladders."""
         self.hpc = cfg.index.is_hpc
-        if 2 * cfg.index.k > 30:
-            if self.hpc:
-                # HPC keys carry hash << 8 | span and the hash rides int32
-                # lanes (k <= 15); every reference HPC surface (spike-in
-                # filter, pb-hifi main run) uses k = 15
-                raise NotImplementedError("HPC device engine requires "
-                                          "k <= 15")
-            raise NotImplementedError(
-                "2k > 30 configurations are not ported yet (ROADMAP: port "
-                "queue item 1, the wide-hash path)")
+        if self.hpc and 2 * cfg.index.k > 30:
+            # HPC keys carry hash << 8 | span and the hash rides int32
+            # lanes (k <= 15); every reference HPC surface (spike-in
+            # filter, pb-hifi main run) uses k = 15
+            raise NotImplementedError("HPC device engine requires k <= 15")
         self.device = require_device(device)
         on_gpu = self.device.type == "cuda"
         self.cfg = cfg

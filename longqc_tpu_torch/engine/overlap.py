@@ -1,10 +1,10 @@
 """Overlap-engine dispatcher (port of longqc_tpu/engine/overlap.py).
 
-Plain-mode (2k <= 30) and HPC (k <= 15) configurations run on the
-device engine (engine/device_overlap). Wide (2k > 30) hashes are not
-ported yet and raise NotImplementedError naming their ROADMAP entry, as
-does HPC with k > 15, which the JAX device engine refuses too; the JAX
-package's batched-chainer v1 path is not ported.
+Plain-mode (k <= 28: int32 hash lanes for 2k <= 30, int64 above) and
+HPC (k <= 15) configurations run on the device engine
+(engine/device_overlap). HPC with k > 15 raises NotImplementedError, as
+in the JAX device engine; the JAX package's batched-chainer v1 path is
+not ported.
 """
 
 from longqc_tpu_torch.config import OverlapConfig

@@ -3,12 +3,18 @@
 `sketch_tiles` launches the hand-written kernel csrc/sketch.cu on CUDA
 tensors (the port of longqc_tpu/ops/sketch_pallas.sketch_tiles_pallas)
 and runs `sketch_tiles_plain` on CPU tensors. Both return per-column
-(R, W) int32 arrays: emit (emission count), hash (bare minimizer hash),
-rid (global read id), pos (read-local position), strand, plus an
-all-zero (R,) flags tensor (the kernel attributes every emission
-exactly, so no row needs the exact fallback the TPU kernel's flag
-requested). hash/rid/pos/strand are only meaningful where emit > 0;
-every caller masks the rest.
+(R, W) int32 arrays: emit (emission count), hash (bare minimizer hash;
+int64 when 2k > 30), rid (global read id), pos (read-local position),
+strand, plus an all-zero (R,) flags tensor (the kernel attributes every
+emission exactly, so no row needs the exact fallback the TPU kernel's
+flag requested). hash/rid/pos/strand are only meaningful where emit >
+0; every caller masks the rest.
+
+Any k <= 28 and w <= 255 runs on both devices. The kernel has four
+variants, counted apart in ops/_ext.LAUNCHES (`kernel_name`): u32 or
+u64 hash words (2k <= 30 or wider), and the ring in registers (w <= 32)
+or as a run-time circular buffer in local memory (wider w, with wider
+chunks: `chunk_width`).
 
 The plain version is the seg-mode `_sketch_core` (ops/sketch) plus the
 read-id / local-position mapping of the JAX tile_flat XLA branch,
@@ -26,15 +32,48 @@ from longqc_tpu_torch.ops import _ext
 from longqc_tpu_torch.ops.sketch import _sketch_core
 
 READS_PER_ROW = 64
-MAX_W = 32          # ring slots in the kernel
-CHUNK = 128         # columns per kernel thread
+MAX_K = 28          # 2k <= 56 bits: hashes and keys stay below int64 max
+MAX_W = 255         # the reference's widest window
+REG_RING_W = 32     # widest w whose ring the kernel holds in registers
+CHUNK = 128         # columns per kernel thread while w <= REG_RING_W
+
+
+def is_wide(k):
+    """Whether k-mers of length k need 64-bit hash words (2k > 30)."""
+    return 2 * k > 30
+
+
+def hash_dtype(k):
+    """Dtype of the hash lanes: int32 while 2k <= 30, else int64."""
+    return torch.int64 if is_wide(k) else torch.int32
+
+
+def chunk_width(w):
+    """Columns per kernel thread. A chunk replays up to w + k pushes of
+    warm-up before its own columns: CHUNK keeps that under about a third
+    of the work while w <= REG_RING_W. Past it the width is the smallest
+    power-of-two multiple of CHUNK that is at least 2 (w + MAX_K), so
+    the warm-up stays under about half of it (256 columns at w = 40,
+    1,024 at w = 255)."""
+    if w <= REG_RING_W:
+        return CHUNK
+    ch = CHUNK
+    while ch < 2 * (w + MAX_K):
+        ch *= 2
+    return ch
+
+
+def kernel_name(k, w):
+    """The kernel variant's name in ops/_ext.LAUNCHES."""
+    return ("sketch" + ("_ring" if w > REG_RING_W else "")
+            + ("_u64" if is_wide(k) else ""))
 
 
 def _check_shapes(codes2, nmask, startmask, endmask, starts, gids, W, k, w):
     R = codes2.shape[0]
-    if not (2 * k <= 30 and 0 < w <= MAX_W and W % 32 == 0 and W >= 32):
-        raise ValueError("sketch kernel needs 2k <= 30, w <= %d and "
-                         "W %% 32 == 0 (k=%d w=%d W=%d)" % (MAX_W, k, w, W))
+    if not (0 < k <= MAX_K and 0 < w <= MAX_W and W % 32 == 0 and W >= 32):
+        raise ValueError("sketch needs k <= %d, w <= %d and W %% 32 == 0 "
+                         "(k=%d w=%d W=%d)" % (MAX_K, MAX_W, k, w, W))
     want = {"codes2": (R, W // 16), "nmask": (R, W // 32),
             "startmask": (R, W // 32), "endmask": (R, W // 32),
             "starts": (R, READS_PER_ROW), "gids": (R, READS_PER_ROW)}
@@ -59,24 +98,27 @@ def sketch_tiles(codes2, nmask, startmask, endmask, starts, gids, *, W, k,
                                     starts, gids)]
     _ext.require_cuda(*ins)
     R = codes2.shape[0]
-    plan = chunk_plan(*ins[:3], W=W, k=k, w=w, chunk=CHUNK)
+    chunk = chunk_width(w)
+    plan = chunk_plan(*ins[:3], W=W, k=k, w=w, chunk=chunk)
     dev = codes2.device
     emit = torch.zeros((R, W), dtype=torch.int32, device=dev)
-    outs = [torch.empty((R, W), dtype=torch.int32, device=dev)
-            for _ in range(4)]
+    hsh = torch.empty((R, W), dtype=plan.dtype, device=dev)
+    rid, pos, strand = (torch.empty((R, W), dtype=torch.int32, device=dev)
+                        for _ in range(3))
     lib = _ext.lib()
-    _ext.LAUNCHES["sketch"] += 1
-    lib.sketch_rows(*ins, plan, emit, *outs, W, k, w, CHUNK)
-    hsh, rid, pos, strand = outs
+    _ext.LAUNCHES[kernel_name(k, w)] += 1
+    lib.sketch_rows(*ins, plan, emit, hsh, rid, pos, strand, W, k, w, chunk)
     return {"emit": emit, "hash": hsh, "rid": rid, "pos": pos,
             "strand": strand,
             "flags": torch.zeros(R, dtype=torch.int32, device=dev)}
 
 
 def chunk_plan(codes2, nmask, startmask, *, W, k, w, chunk):
-    """Warm-up plan of the chunked kernel: (R, ceil(W / chunk), 5) int32
-    rows [s0, seg, segst, k0, k1], one per chunk of `chunk`
-    columns starting at column c0 = chunk index * chunk.
+    """Warm-up plan of the chunked kernel: (R, ceil(W / chunk), 5) rows
+    [s0, seg, segst, k0, k1], one per chunk of `chunk` columns starting
+    at column c0 = chunk index * chunk; int32, or int64 in all five
+    fields when 2k > 30 (k0 / k1 then hold up to 56 bits, and the
+    kernel's u64 variant reads an int64 plan).
 
     s0 is the column of the (w+k)-th push before c0, or 0 when there
     are no more than w+k (a push is every column but a valid one whose
@@ -93,14 +135,15 @@ def chunk_plan(codes2, nmask, startmask, *, W, k, w, chunk):
     of them, zero-filled as the recurrence starts)."""
     R = codes2.shape[0]
     dev = codes2.device
-    i32, i64 = torch.int32, torch.int64
+    i64 = torch.int64
     NC = -(-W // chunk)
-    codes = unpack2(codes2, W).to(i32)
+    kdt = hash_dtype(k)
+    codes = unpack2(codes2, W).to(kdt)
     valid = ~unpack1(nmask, W)
     vcum = torch.cumsum(valid, dim=1, dtype=i64)
     # k-mer registers over the valid-base sequence (valid rank order;
-    # 2k <= 30 bits, so int32, and no shift leaves the 2k bits)
-    cv = torch.zeros((R, W + 1), dtype=i32, device=dev).scatter_(
+    # 2k bits in an int32 or int64 lane, and no shift leaves the 2k bits)
+    cv = torch.zeros((R, W + 1), dtype=kdt, device=dev).scatter_(
         1, torch.where(valid, vcum - 1, W), codes)[:, :W]
     kf = cv.clone()
     kr = (3 ^ cv) << (2 * (k - 1))
@@ -128,7 +171,7 @@ def chunk_plan(codes2, nmask, startmask, *, W, k, w, chunk):
     segst = torch.where(n_seg > 0,
                         torch.searchsorted(scum, n_seg.contiguous()), 0)
     return torch.stack([s0, n_seg - 1, segst, k0, k1],
-                       dim=2).to(torch.int32).contiguous()
+                       dim=2).to(kdt).contiguous()
 
 
 def unpack2(words, W):
@@ -170,14 +213,15 @@ def sketch_tiles_plain(codes2, nmask, startmask, endmask, starts, gids, *,
     local = res["pos"].to(torch.int64) - torch.gather(
         starts.to(torch.int64), 1, sg)
 
-    def place(v):
-        out = torch.zeros((R, W + 1), dtype=i32, device=dev)
-        return out.scatter_(1, col, v.to(i32))[:, :W]
+    def place(v, dtype=i32):
+        out = torch.zeros((R, W + 1), dtype=dtype, device=dev)
+        return out.scatter_(1, col, v.to(dtype))[:, :W]
 
     return {"emit": place(torch.where(has, res["emit"],
                                       torch.zeros_like(res["emit"]))),
             "hash": place(torch.where(has, res["hash"],
-                                      torch.zeros_like(res["hash"]))),
+                                      torch.zeros_like(res["hash"])),
+                          hash_dtype(k)),
             "rid": place(torch.where(has, rid, torch.zeros_like(rid))),
             "pos": place(torch.where(has, local, torch.zeros_like(local))),
             "strand": place(torch.where(has, res["strand"],

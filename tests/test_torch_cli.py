@@ -1,7 +1,8 @@
 """`python -m longqc_tpu_torch mmcov` prints the same TSV as
 `python -m longqc_tpu mmcov` (the port on CPU tensors, --device cpu),
-in plain mode and in the HPC spike-in filter run, and the surfaces that
-are not ported yet say so."""
+in plain mode (with the pb-hifi fast preset's wide hashes too) and in the
+HPC spike-in filter run, and the surfaces that are not ported yet say
+so."""
 
 import json
 
@@ -15,11 +16,11 @@ from longqc_tpu_torch.cli import main
 from util_synth import make_genome, sample_reads, write_fastq_file
 
 
-def _dataset(tmp_path, seed=13, n=60, nq=16):
+def _dataset(tmp_path, seed=13, n=60, nq=16, err=0.12):
     rng = np.random.RandomState(seed)
     genome = make_genome(rng, 15000)
     reads = sample_reads(rng, genome, n, min_len=600, max_len=1600,
-                         err=0.12, junk_frac=0.1)
+                         err=err, junk_frac=0.1)
     tf = str(tmp_path / "target.fq")
     qf = str(tmp_path / "query.fq")
     write_fastq_file(tf, reads)
@@ -44,6 +45,26 @@ def test_mmcov_output_matches_jax_package(tmp_path, capsys, flags):
     with open(stats) as f:
         st = json.load(f)
     assert st["device_calls"] >= 1 and "step" in st["phase_s"]
+
+
+def test_mmcov_wide_hashes_match_jax_package(tmp_path, capsys):
+    """The pb-hifi fast preset's sketch (-k 19 -w 10) on low-error
+    reads: int64 hash lanes end to end."""
+    tf, qf = _dataset(tmp_path, err=0.03)
+    flags = ["-k", "19", "-w", "10", "-p", "80", "-q", "160", "-l", "0"]
+    assert jax_main(["mmcov"] + flags + [tf, qf]) == 0
+    want = capsys.readouterr().out
+    stats = str(tmp_path / "stats.json")
+    assert main(["mmcov"] + flags + ["--device", "cpu", "--stats", stats,
+                                     tf, qf]) == 0
+    got = capsys.readouterr().out
+    assert got == want
+    rows = got.splitlines()
+    assert len(rows) == 16
+    assert sum(r.split("\t")[3] != "0" for r in rows) >= 8
+    with open(stats) as f:
+        st = json.load(f)
+    assert st["device_calls"] >= 1 and st["host_fixed_rows"] == 0
 
 
 def test_mmcov_hpc_filter_matches_jax_package(tmp_path, capsys):

@@ -6,31 +6,12 @@ compare as multisets."""
 import numpy as np
 import pytest
 import torch
-import torch_util  # noqa: F401
+from torch_util import index_triples as _triples
+from torch_util import rand_reads as _rand_reads
 
 from longqc_tpu.engine import device_index as jdi
 from longqc_tpu_torch.engine import device_index as di
 from longqc_tpu_torch.engine import overlap_host as toh
-from longqc_tpu_torch.ops.ringprop import INF32
-
-
-def _rand_reads(rng, n, lo, hi, with_n=True):
-    reads = []
-    for i in range(n):
-        ln = rng.randint(lo, hi)
-        s = "".join("ACGT"[j] for j in rng.randint(0, 4, ln))
-        if with_n and ln > 10 and rng.rand() < 0.5:
-            p = rng.randint(0, ln - 5)
-            s = s[:p] + "N" * rng.randint(1, 4) + s[p + 3:]
-        reads.append(["r%04d" % i, s, ""])
-    return reads
-
-
-def _triples(ih, irid, ips):
-    ih, irid, ips = (np.asarray(a) for a in (ih, irid, ips))
-    keep = ih != INF32
-    return sorted(zip(ih[keep].tolist(), irid[keep].tolist(),
-                      ips[keep].tolist()))
 
 
 @pytest.mark.parametrize("k,w", [(12, 5), (15, 5), (12, 10)])

@@ -24,11 +24,11 @@ from longqc_tpu_torch.ops.chain import gap_penalty_table
 from util_synth import make_genome, sample_reads
 
 
-def _cfgs(**kw):
-    t = OverlapConfig(index=IndexOpt(k=12, w=5),
+def _cfgs(k=12, w=5, **kw):
+    t = OverlapConfig(index=IndexOpt(k=k, w=w),
                       map=MapOpt(min_score_med=80, min_score_good=160),
                       flt=FltOpt(min_ovlp=0), **kw)
-    j = JOverlapConfig(index=JIndexOpt(k=12, w=5),
+    j = JOverlapConfig(index=JIndexOpt(k=k, w=w),
                        map=JMapOpt(min_score_med=80, min_score_good=160),
                        flt=JFltOpt(min_ovlp=0), **kw)
     return t, j
@@ -112,14 +112,18 @@ def jax_host_fix(cfg_j, queries, jg, jp, names, state):
     return fix
 
 
-@pytest.mark.parametrize("err", [0.12, 0.04])
-def test_count_and_step_match_jax_through_convert(err):
+@pytest.mark.parametrize("err,k,w", [(0.12, 12, 5), (0.04, 12, 5),
+                                     (0.04, 19, 10)],
+                         ids=["0.12", "0.04", "wide-k19"])
+def test_count_and_step_match_jax_through_convert(err, k, w):
     """At err 0.04 anchor windows run deeper than the JAX chain ring of
     64: rows the JAX step flags F_KERNEL and its engine resolves at a
-    deeper ring or on the host, which the port resolves in one step."""
+    deeper ring or on the host, which the port resolves in one step. At
+    k = 19 the index and query hashes ride int64 lanes through convert,
+    the count pass and the step."""
     reads, queries = _small(err)
-    cfg_t, cfg_j = _cfgs()
-    k, w, Q = 12, 5, tdo.GROUP_Q
+    cfg_t, cfg_j = _cfgs(k, w)
+    Q = tdo.GROUP_Q
     jp = jdo._PartIndex(reads, k, w, 0, 2e-4, jdi.TILE_LADDER_SMALL,
                         jdi.N_IDX_SIZES_SMALL)
     jg = jdo._Group(list(range(len(queries))), queries, k, w, True)
@@ -134,6 +138,8 @@ def test_count_and_step_match_jax_through_convert(err):
     arrays = {n: np.asarray(getattr(jg, n))
               for n in convert.GROUP_ARRAYS + convert.STATE_ARRAYS}
     g = convert.group_from_arrays(arrays)
+    hdt = torch.int64 if 2 * k > 30 else torch.int32
+    assert idx["ih"].dtype == g["qh"].dtype == hdt
     cnt, left, occ = tdo._count_expanded(idx["ih"], g["qh"], g["qcnt"],
                                          g["n_slots"], idx["mid_occ"],
                                          mcrop=jg.count_crop())
@@ -183,7 +189,8 @@ def test_count_and_step_match_jax_through_convert(err):
         assert jev == _events(np_(tout[4]), Q, np_(tout[5]))
         assert np_(tout[0]).sum() > 0
         jstate, tstate = jfin, list(tout[:4])
-    assert (n_esc + n_host > 0) == (err < 0.1)
+    if k == 12:
+        assert (n_esc + n_host > 0) == (err < 0.1)
 
 
 def test_rows_match_jax_engine_small():

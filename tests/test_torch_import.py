@@ -74,8 +74,7 @@ def test_kernel_wrappers_refuse_cpu_mixed_inputs():
 @pytest.mark.parametrize("cfg,match", [
     # the JAX engine's rule: HPC keys ride int32 lanes, so k <= 15
     (OverlapConfig(index=IndexOpt(k=19, w=10, is_hpc=True)), "k <= 15"),
-    (OverlapConfig(index=IndexOpt(k=19, w=10)), "ROADMAP"),
-], ids=["hpc", "wide"])
+], ids=["hpc"])
 def test_unported_configs_raise(cfg, match):
     from longqc_tpu_torch.engine.overlap import overlap_run_device
 

@@ -25,13 +25,14 @@ def dev():
     return torch.device("cuda")
 
 
-def _long_run_tile(rng, R, W):
+def _long_run_tile(rng, R, W, sep=4, p_n=.04):
     """Reads with N runs and (AT)n runs longer than the kernel's column
     chunk (ops/sketch_cuda.CHUNK), IUPAC-free random sequence between."""
-    b = di._TileBuilder(R, W, 4)
+    b = di._TileBuilder(R, W, sep)
     gid = 0
     while len(b.rows) < R:
-        s = "".join(rng.choice(list("ACGTN"), p=[.24, .24, .24, .24, .04],
+        p = [(1 - p_n) / 4] * 4 + [p_n]
+        s = "".join(rng.choice(list("ACGTN"), p=p,
                                size=rng.randint(50, min(W // 2, 9000))))
         if gid % 3 == 1:
             s += "AT" * rng.randint(100, 600)
@@ -43,21 +44,52 @@ def _long_run_tile(rng, R, W):
     return b.tiles()[0]
 
 
+def _tile_args(t, dev):
+    return [di.to_device_words(a, dev) for a in
+            (t.codes2, t.nmask, t.startmask, t.endmask)] + \
+        [torch.from_numpy(a).to(dev) for a in (t.starts, t.gids)]
+
+
+def _assert_sketch_equals_plain(args, W, k, w):
+    kr = skc.sketch_tiles(*args, W=W, k=k, w=w)
+    p = skc.sketch_tiles_plain(*args, W=W, k=k, w=w)
+    assert torch.equal(kr["emit"], p["emit"])
+    on = p["emit"] > 0
+    assert int(on.sum()) > 0
+    for f in ("hash", "rid", "pos", "strand"):
+        assert kr[f].dtype == p[f].dtype
+        assert torch.equal(kr[f][on], p[f][on])
+    return p
+
+
 @pytest.mark.parametrize("R,W", [(16, 2048), (256, 8192), (32, 65536)])
 def test_sketch_kernel_matches_plain(dev, R, W):
     rng = np.random.RandomState(W)
-    t = _long_run_tile(rng, R, W)
-    args = [di.to_device_words(a, dev) for a in
-            (t.codes2, t.nmask, t.startmask, t.endmask)] + \
-        [torch.from_numpy(a).to(dev) for a in (t.starts, t.gids)]
+    args = _tile_args(_long_run_tile(rng, R, W), dev)
     for k, w in ((12, 5), (15, 10)):
-        kr = skc.sketch_tiles(*args, W=W, k=k, w=w)
-        p = skc.sketch_tiles_plain(*args, W=W, k=k, w=w)
-        assert torch.equal(kr["emit"], p["emit"])
-        on = p["emit"] > 0
-        assert int(on.sum()) > 0
-        for f in ("hash", "rid", "pos", "strand"):
-            assert torch.equal(kr[f][on], p[f][on])
+        _assert_sketch_equals_plain(args, W, k, w)
+
+
+@pytest.mark.parametrize("k,w", [(19, 10), (28, 5), (16, 32)])
+@pytest.mark.parametrize("R,W", [(16, 2048), (256, 8192), (32, 65536)])
+def test_sketch_u64_kernel_matches_plain(dev, R, W, k, w):
+    """2k > 30: u64 k-mer registers and hashes, int64 hash output."""
+    rng = np.random.RandomState(W + k)
+    args = _tile_args(_long_run_tile(rng, R, W), dev)
+    p = _assert_sketch_equals_plain(args, W, k, w)
+    assert p["hash"].dtype == torch.int64
+    assert int(p["hash"].max()) > 1 << 31
+
+
+@pytest.mark.parametrize("k", [12, 19], ids=["u32", "u64"])
+@pytest.mark.parametrize("w", [33, 40, 64, 65, 128, 129, 255])
+def test_sketch_ring_kernel_matches_plain(dev, w, k):
+    """w > 32: the ring is a circular buffer addressed at run time (64,
+    128 or 256 slots), in wider chunks."""
+    R, W = 64, 8192
+    rng = np.random.RandomState(w + k)
+    args = _tile_args(_long_run_tile(rng, R, W, sep=w - 1, p_n=.002), dev)
+    _assert_sketch_equals_plain(args, W, k, w)
 
 
 def _anchor_rows(rng, Q, A, dense):

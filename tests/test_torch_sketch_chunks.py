@@ -4,7 +4,10 @@ wrapper uses) plus a Python port of the kernel's per-chunk recurrence,
 run over [warm-up start, chunk end) for every chunk with the emissions
 of the chunk's own columns summed, equal the unchunked recurrence and
 sketch_tiles_plain, exactly, on tiles with (AT)n runs and N runs longer
-than a chunk and reads shorter than the warm-up."""
+than a chunk and reads shorter than the warm-up. The replay follows the
+kernel's variants: 64-bit registers and the int64 sentinel for 2k > 30,
+and for w > 32 the ring as a circular buffer addressed at run time, at
+the chunk width the wrapper gives that variant."""
 
 import numpy as np
 import pytest
@@ -14,12 +17,14 @@ from torch_util import np_, rand_seq
 from longqc_tpu_torch.engine import device_index as di
 from longqc_tpu_torch.ops import sketch_cuda as skc
 
-SENT = 0x7FFFFFFF
 NOCOL = -(1 << 20)
 RPR = 64
 
 
-def _hash32(key, mask):
+def _hash(key, mask):
+    """hash64 of sketch.c on Python integers: with the 2k-bit mask
+    re-applied, it equals the kernel's u32 arithmetic for 2k <= 30 and
+    its u64 arithmetic above."""
     key = (~key + (key << 21)) & mask
     key = key ^ (key >> 24)
     key = ((key + (key << 3)) + (key << 8)) & mask
@@ -30,20 +35,63 @@ def _hash32(key, mask):
     return key
 
 
+class _ShiftRing:
+    """The kernel's ring for w <= 32: slot 0 holds the newest push."""
+
+    def __init__(self, w, sent):
+        self.w = w
+        self.slots = [(sent, 0, NOCOL)] * w
+
+    def oldest_col(self):
+        return self.slots[self.w - 1][2]
+
+    def push(self, entry):
+        self.slots = [entry] + self.slots[:self.w - 1]
+
+    def newest_first(self):
+        return list(self.slots)
+
+
+class _CircularRing:
+    """The kernel's ring for w > 32: a power-of-two buffer of WM >= w
+    slots; a push writes slot (head + 1) mod WM and the entry pushed s
+    pushes before the newest sits at (head - s) mod WM."""
+
+    def __init__(self, w, sent):
+        self.w = w
+        self.wm = next(c for c in (64, 128, 256) if w <= c)
+        self.buf = [(sent, 0, NOCOL)] * self.wm
+        self.head = 0
+
+    def _slot(self, s):
+        return (self.head - s) & (self.wm - 1)
+
+    def oldest_col(self):
+        return self.buf[self._slot(self.w - 1)][2]
+
+    def push(self, entry):
+        self.head = (self.head + 1) & (self.wm - 1)
+        self.buf[self.head] = entry
+
+    def newest_first(self):
+        return [self.buf[self._slot(s)] for s in range(self.w)]
+
+
 def _run_chunk(row, plan, c0, c1, k, w, emit, rec):
     """One kernel thread: the recurrence from plan's s0 with a clean
-    ring (a shift register, slot 0 newest), adding the emissions
-    decided at columns >= c0 and recording those columns."""
+    ring, adding the emissions decided at columns >= c0 and recording
+    those columns."""
     codes, amb, sb, eb, starts, gids = row
     s0, seg, segst, k0, k1 = (int(x) for x in plan)
     mask = (1 << (2 * k)) - 1
     shift1 = 2 * (k - 1)
+    SENT = (1 << 63) - 1 if skc.is_wide(k) else 0x7FFFFFFF
     curg = curs = 0
     if 0 <= seg < RPR:
         curg, curs = int(gids[seg]), int(starts[seg])
     lc = 0
     minh, miny, minc = SENT, 0, NOCOL
-    ring = [[SENT, 0, NOCOL] for _ in range(w)]
+    ring = (_CircularRing if w > skc.REG_RING_W else _ShiftRing)(w, SENT)
     for j in range(s0, c1):
         c = int(codes[j])
         valid = not amb[j]
@@ -61,7 +109,7 @@ def _run_chunk(row, plan, c0, c1, k, w, emit, rec):
         l_new = (lc if sym else lc + 1) if valid else 0
         lc = l_new
         z = 0 if k0 < k1 else 1
-        ih = _hash32(min(k0, k1), mask) if (valid and not sym
+        ih = _hash(min(k0, k1), mask) if (valid and not sym
                                             and l_new >= k) else SENT
         iy = ((j - curs) << 1) | z
         if mine:
@@ -69,10 +117,10 @@ def _run_chunk(row, plan, c0, c1, k, w, emit, rec):
             rec[j] = (ih, curg, j - curs, z) if on else (0, 0, 0, 0)
         evicted = False
         if push:
-            evicted = ring[w - 1][2] == minc
-            ring = [[ih, iy, j]] + ring[:w - 1]
+            evicted = ring.oldest_col() == minc
+            ring.push((ih, iy, j))
         if push and l_new == w + k - 1 and minh != SENT and mine:
-            for h, y, col in ring[1:]:
+            for h, y, col in ring.newest_first()[1:]:
                 if h == minh and y != miny:
                     emit[col] += 1
         cr = push and ih <= minh
@@ -81,13 +129,14 @@ def _run_chunk(row, plan, c0, c1, k, w, emit, rec):
                                       or (ce and l_new >= w + k - 1)):
             emit[minc] += 1
         if ce:
-            nmh = min(e[0] for e in ring)
+            slots = ring.newest_first()
+            nmh = min(e[0] for e in slots)
             nmc, nmy = NOCOL, 0
-            for h, y, col in ring:
+            for h, y, col in slots:
                 if h == nmh and col > nmc:
                     nmc, nmy = col, y
             if mine and l_new >= w + k - 1 and nmh != SENT:
-                for h, y, col in ring:
+                for h, y, col in slots:
                     if h == nmh and y != nmy:
                         emit[col] += 1
             minh, miny, minc = nmh, nmy, nmc
@@ -97,14 +146,14 @@ def _run_chunk(row, plan, c0, c1, k, w, emit, rec):
             emit[minc] += 1
 
 
-def _tile(rng, R, W, w):
+def _tile(rng, R, W, w, lo=200, hi=900, with_n=0.01):
     """Reads with long (AT)n runs (symmetric k-mers for even k), N runs
     longer than a chunk, and reads shorter than the warm-up."""
     b = di._TileBuilder(R, W, max(w - 1, 1))
     gid = 0
     while len(b.rows) < R:
         kind = gid % 5
-        s = rand_seq(rng, rng.randint(200, 900), with_n=0.01)
+        s = rand_seq(rng, rng.randint(lo, hi), with_n=with_n)
         if kind == 1:
             p = rng.randint(0, len(s))
             s = s[:p] + "AT" * rng.randint(60, 200) + s[p:]
@@ -118,11 +167,24 @@ def _tile(rng, R, W, w):
     return b.tiles()[0]
 
 
-@pytest.mark.parametrize("k,w", [(12, 5), (15, 5), (12, 10), (15, 10)])
-def test_chunked_recurrence_matches_unchunked_and_plain(k, w):
+# (k, w, chunk): 64-column chunks for the register-ring variants (half
+# the kernel's, so more chunk borders fall into runs), the wrapper's own
+# width for the run-time ring
+CASES = [(12, 5, 64), (15, 5, 64), (12, 10, 64), (15, 10, 64),
+         (19, 10, 64), (28, 5, 64),
+         (12, 40, skc.chunk_width(40)), (19, 40, skc.chunk_width(40)),
+         (12, 255, skc.chunk_width(255)), (19, 255, skc.chunk_width(255))]
+
+
+@pytest.mark.parametrize("k,w,CH", CASES)
+def test_chunked_recurrence_matches_unchunked_and_plain(k, w, CH):
     rng = np.random.RandomState(k * 10 + w)
-    R, W, CH = 4, 2048, 64
-    tile = _tile(rng, R, W, w)
+    if w <= skc.REG_RING_W:
+        R, W = 4, 2048
+        tile = _tile(rng, R, W, w)
+    else:       # sparse minimizers: longer reads with rarer Ns, wider rows
+        R, W = 2, 8192
+        tile = _tile(rng, R, W, w, lo=600, hi=2500, with_n=0.001)
     words = [di.to_device_words(a, "cpu") for a in
              (tile.codes2, tile.nmask, tile.startmask, tile.endmask)]
     ints = [torch.from_numpy(a) for a in (tile.starts, tile.gids)]
@@ -151,13 +213,21 @@ def test_chunked_recurrence_matches_unchunked_and_plain(k, w):
         assert chunk_rec == full_rec
         np.testing.assert_array_equal(chunk_e, plain["emit"][r])
         on = chunk_e > 0
-        assert on.sum() > 50
+        assert on.sum() > (50 if w <= 40 else 20)
         for i, key in enumerate(("hash", "rid", "pos", "strand")):
             got = np.array([full_rec[j][i] for j in np.nonzero(on)[0]])
             np.testing.assert_array_equal(got, plain[key][r][on])
+    if skc.is_wide(k):
+        # int64 lanes: the plan's registers and some hashes pass 2^31
+        assert plan.dtype == np.int64 and plain["hash"].dtype == np.int64
+        assert plan[:, :, 3:].max() > 1 << 31
+        assert plain["hash"].max() > 1 << 31
+    else:
+        assert plan.dtype == np.int32 and plain["hash"].dtype == np.int32
     # (AT)n runs (symmetric k-mers, no pushes, for even k) make some
     # warm-ups longer than a chunk
-    assert max(warm) > CH if k % 2 == 0 else max(warm) >= w + k
+    assert max(warm) > CH if k % 2 == 0 and w <= skc.REG_RING_W \
+        else max(warm) >= w + k
 
 
 def test_plan_warm_up_start_counts_pushes():
