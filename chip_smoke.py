@@ -9,7 +9,9 @@ prints the final result line):
      triton, the compiler variables of the environment; no CUDA
      device -> fail
   2. build the five kernels (B1 sketch, B2 chain fill, B3 peak,
-     B4 min-rank, B5 extension) from longqc_tpu_torch/csrc, and the
+     B4 min-rank, B5 extension, with its one-warp body for W <= 63 and
+     its block-per-pair body for wider bands) from
+     longqc_tpu_torch/csrc, and the
      port's FASTA/FASTQ reader (csrc/fastx_native.cpp, g++ -O3); the
      registers, stack frame and spills of every B1 instance (one more
      `nvcc -Xptxas -v` of csrc/sketch.cu alone)
@@ -41,13 +43,19 @@ prints the final result line):
      flag counts, host-fixed rows (<= 5%) and 32 random queries' rows
      against the host spec; B3 / B4 launches by anchor rung and their
      summed bound; then one more run of the same command under
-     torch.profiler for each kernel's total device time on the path
+     torch.profiler for each kernel's total device time on the path;
+     then the engine once more on the same data with the width ladder
+     capped below the part, so that its index takes the hash-range
+     build with at least 4 ranges: all 5,000 rows must equal the first
+     run's, with no host-only part
   6. B5, the banded extension (ops/extend.extz_batch), on 8,192 pairs
      of 500-4,000 bp (10 Mbp genome, err 0.12, 20% unrelated pairs so
-     Z-drop fires; W=63, zdrop=400, scores 2/-4/4/2, extd adds 24/1):
-     extz and extd kernels against their plain version on the same
-     tensors, all eight outputs exact; 16 short pairs against the
-     full-DP host reference
+     Z-drop fires; zdrop=400, scores 2/-4/4/2, extd adds 24/1) at W=63
+     (the one-warp body) and W=64 and 255 (the wide body), and on the
+     first 1,024 pairs at W=5,000, past every pair, where the wide body
+     clamps each pair's band: extz and extd kernels against their plain
+     version (the full band) on the same tensors, all eight outputs
+     exact; 16 short pairs against the full-DP host reference
   7. the HPC spike-in-control filter run through cli.main
      (mmcov -H -k 15 -w 10 -c 1 -l 0 --filter) against the Sequel
      control reference in the repository: 5,000 queries of 1-8 kbp,
@@ -60,17 +68,30 @@ prints the final result line):
      -q 160 -l 0: wide hashes on int64 lanes, the u64 B1): 10 Mbp
      genome, 6,000 target reads of 10-20 kbp (~9x), err 0.01, 5,000
      queries; checks and prints as phase 5, the u32 B1 not launched
+  9. a part of the reference's size through cli.main at phase 5's
+     settings (default -I 4G, so one part): 230,000 target reads of
+     1-8 kbp (~1.03 Gbp, ~9.4x of a 110 Mbp genome), err 0.12, 5,000
+     queries; the part must take the hash-range build on the card (0
+     host-only parts, 1 hash-range part), host-fixed rows <= 5%; then
+     one more build_device_index over the same part, checked apart from
+     the merge code: ih non-decreasing, its real entries the sum of the
+     tiles' emission counts, the (rid, pos) multiset of 4,096 sampled
+     hashes equal to the tiles' chunks', mid_occ the kth count of
+     torch.unique_consecutive over ih; its peak device memory and its
+     seconds (host packing, B1 plus chunks, the merge) printed
 Kernel launch counts are reset just before each path (phase 4's three
-runs, phases 5, 6, 7, 8) and read just after it. Each kernel's bound is the larger of its bytes
-(each input read once, each output written once) over 3.35 TB/s and
-its integer operations (counted from this run's data) over 67 T/s, the
-card's 32-bit rate outside the tensor cores. The line before the last
+runs, phases 5, 6, 7, 8, 9) and read just after it. Each kernel's bound
+is the larger of its bytes (each input read once, each output written
+once) over 3.35 TB/s and its integer operations (counted from this
+run's data) over 67 T/s, the card's 32-bit rate outside the tensor
+cores. The line before the last
 but one is {"kernels": [...]}, the line before the last the card's
 name and power limit, the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
 
+import gc
 import io
 import json
 import os
@@ -90,11 +111,17 @@ N_QUERIES = 5000        # the sampleqc default -n
 ONT_RUN = dict(
     phase="phase 5", k=12, w=5, p=160, q=160, seed=2024, n_targets=20000,
     min_len=1000, max_len=8000, err=0.12, junk=0.1, prefix="",
-    kernels=("sketch", "chain", "peak", "minrank"))
+    kernels=("sketch", "chain", "peak", "minrank"), range_rerun=True)
 HIFI_RUN = dict(
     phase="phase 8", k=19, w=10, p=80, q=160, seed=1919, n_targets=6000,
     min_len=10000, max_len=20000, err=0.01, junk=0.02, prefix="hifi_",
     kernels=("sketch_u64", "chain", "peak", "minrank"))
+# phase 9: a part of at least 1 Gbp at phase 5's settings
+BIG_RUN = dict(
+    phase="phase 9", k=12, w=5, p=160, q=160, seed=909, genome=110_000_000,
+    n_targets=230_000, min_len=1000, max_len=8000, err=0.12, junk=0.1,
+    min_bp=1_000_000_000, kernels=("sketch", "chain", "peak", "minrank"))
+N_SAMPLED_HASHES = 4096
 
 B1 = ("longqc_tpu_torch/csrc/sketch.cu",
       "longqc_tpu/ops/sketch_pallas.py:312")
@@ -110,6 +137,10 @@ SOURCES = {
              "longqc_tpu/ops/extend_pallas.py:192"),
     "extd": ("longqc_tpu_torch/csrc/extend.cu",
              "longqc_tpu/ops/extend_pallas.py:192"),
+    "extz_wide": ("longqc_tpu_torch/csrc/extend.cu",
+                  "longqc_tpu/ops/extend_pallas.py:192"),
+    "extd_wide": ("longqc_tpu_torch/csrc/extend.cu",
+                  "longqc_tpu/ops/extend_pallas.py:192"),
 }
 HPC_KERNELS = ("chain", "peak", "minrank")
 # CUDA kernel symbol prefix -> kernel name (the profiler's key); the B1
@@ -580,7 +611,7 @@ def small_end_to_end(dev, k=12, w=5, err=0.12):
     cfg = OverlapConfig(index=IndexOpt(k=k, w=w),
                         map=MapOpt(min_score_med=80, min_score_good=160),
                         flt=FltOpt(min_ovlp=0))
-    rows_host = oh.overlap_run(list(reads), queries, cfg)
+    rows_host = oh.overlap_run(list(reads), queries, cfg, device=dev)
     torch.cuda.synchronize()
     _ext.reset_launches()
     eng = DeviceOverlapEngine(cfg, queries, device=dev)
@@ -741,15 +772,17 @@ def realistic_mmcov(dev, workdir, run):
                              % (stats["host_fixed_rows"], n_q))
     covered = sum(1 for r in rows if r.split("\t")[3] != "0")
     log("rows with reliable regions: %d / %d" % (covered, n_q))
-
-    # 32 random queries against the port's host spec over the same
-    # targets (the host spec's tensor sketch runs on the card too)
-    pick = sorted(random.Random(7).sample(range(n_q), 32))
     cfg = OverlapConfig(
         index=IndexOpt(k=k, w=w, batch_size=parse_num("4G")),
         map=MapOpt(min_score_med=run["p"], min_score_good=run["q"],
                    min_chain_score=40),
         flt=FltOpt(min_ovlp=0, min_coverage=3))
+    if run.get("range_rerun"):
+        range_rerun(dev, cfg, targets, queries, rows, stats)
+
+    # 32 random queries against the port's host spec over the same
+    # targets (the host spec's tensor sketch runs on the card too)
+    pick = sorted(random.Random(7).sample(range(n_q), 32))
     t = time.time()
     want = oh.overlap_run(iter(targets), [queries[i] for i in pick], cfg,
                           device=dev)
@@ -766,6 +799,42 @@ def realistic_mmcov(dev, workdir, run):
         "%.1f s): %s" % (phase, time.time() - t, json.dumps(
             {key: round(v, 3) for key, v in sorted(dev_ms.items())})))
     return launches, dev_ms, (rungs, path_bound)
+
+
+def range_rerun(dev, cfg, targets, queries, rows, stats,
+                n_idx_sizes=(1 << 21,), range_max=1 << 23):
+    """The engine once more on phase 5's data with the width ladder
+    capped below the part (and ranges of 2^23 entries), so that its
+    index takes the hash-range build: every row must equal the flat
+    run's."""
+    import torch
+    from longqc_tpu_torch.engine.device_overlap import DeviceOverlapEngine
+
+    eng = DeviceOverlapEngine(cfg, queries, device=dev)
+    eng.n_idx_sizes = n_idx_sizes
+    eng.range_max = range_max
+    t = time.time()
+    rows2 = eng.run(iter(targets))
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    st = eng.stats()
+    bad = sum(1 for a, b in zip(rows, rows2) if a != b)
+    log("phase 5, hash-range build: wall %.2f s; index %.3f s (flat run "
+        "%.3f s), split %s (flat run %s); ranges per part %s; host-only "
+        "parts %d, hash-range parts %d, host-fixed rows %d; %d of %d rows "
+        "differ from the flat run" % (
+            wall, st["phase_s"]["index"], stats["phase_s"]["index"],
+            json.dumps({key: round(v, 3) for key, v in st["index_s"].items()}),
+            json.dumps({key: round(v, 3)
+                        for key, v in stats["index_s"].items()}),
+            st["part_ranges"], st["host_only_parts"], st["hash_range_parts"],
+            st["host_fixed_rows"], bad, len(rows)))
+    if bad or len(rows2) != len(rows):
+        raise AssertionError("the hash-range build changed %d rows" % bad)
+    if st["host_only_parts"] or st["hash_range_parts"] != 1 or \
+            min(st["part_ranges"]) < 4:
+        raise AssertionError("phase 5's rerun must build its one part by "
+                             "hash range in at least 4 ranges: %s" % st)
 
 
 # ---------------------------------------------------------------------------
@@ -812,74 +881,105 @@ def extension_pairs(rng, genome, n, lo, hi, err, unrelated):
     return pad(qs) + pad(ts)
 
 
-def check_extend(dev, B=8192, W=63, zdrop=400):
+# (W, pairs) of phase 6: the one-warp body at W = 63, the wide body at
+# W = 64 (the JAX default), 255 and 5,000 (past every pair: clamped)
+EXT_RUNS = ((63, 8192), (64, 8192), (255, 8192), (5000, 1024))
+
+
+def check_extend(dev, zdrop=400):
     """B5 through its entry point (ops/extend.extz_batch) on CUDA
-    tensors, extz and extd; then each against the plain version on the
-    same tensors, and short pairs against the host reference. Returns
-    (per-mode results, launch counts of the entry-point calls)."""
+    tensors, extz and extd at each (W, pairs) of EXT_RUNS; then each
+    against the plain version on the same tensors, and short pairs
+    against the host reference. Returns (results by LAUNCHES name, the
+    first W of each body unsuffixed and the others suffixed _W<W>;
+    launch counts of the entry-point calls)."""
     import numpy as np
     import torch
     from util_synth import make_genome_fast
     from longqc_tpu_torch.ops import _ext
     from longqc_tpu_torch.ops import extend as ext
+    from longqc_tpu_torch.ops.extend_cuda import NARROW_W
 
     modes = {"extz": {}, "extd": {"gapo2": 24, "gape2": 1}}
+    B = max(b for _w, b in EXT_RUNS)
     rng = np.random.RandomState(31)
     t = time.time()
     genome = make_genome_fast(rng, 10_000_000)
-    q, ql, tg, tl = (torch.from_numpy(a).to(dev) for a in extension_pairs(
-        rng, genome, B, 500, 4000, 0.12, 0.2))
+    pairs = [torch.from_numpy(a).to(dev) for a in extension_pairs(
+        rng, genome, B, 500, 4000, 0.12, 0.2)]
+    q, _ql, tg, _tl = pairs
     log("extension data: %d pairs, codes %s + %s int32 (%d bytes), made "
         "in %.1f s" % (B, tuple(q.shape), tuple(tg.shape),
                        4 * (q.numel() + tg.numel()), time.time() - t))
 
-    def run(m):
-        return ext.extz_batch(q, ql, tg, tl, W=W, zdrop=zdrop, **modes[m])
+    def args(b):
+        return [a[:b] for a in pairs]
+
+    def run(m, W, b):
+        return ext.extz_batch(*args(b), W=W, zdrop=zdrop, **modes[m])
 
     torch.cuda.synchronize()
     _ext.reset_launches()
-    kern = {m: run(m) for m in modes}
+    kern = {(m, W): run(m, W, b) for W, b in EXT_RUNS for m in modes}
     torch.cuda.synchronize()
     launches = dict(_ext.LAUNCHES)
     out = {}
-    for m, gap in modes.items():
-        if not launches.get(m):
-            raise AssertionError("kernel %s was not launched by "
-                                 "extz_batch" % m)
-        t = time.time()
-        plain = ext.extz_batch_plain(q, ql, tg, tl, W=W, zdrop=zdrop, **gap)
-        torch.cuda.synchronize()
-        pms = (time.time() - t) * 1e3
-        err = 0
-        for key in ext.KEYS:
-            err = max(err, require_equal("%s %s" % (m, key), kern[m][key],
-                                         plain[key]))
-        n_drop = int(kern[m]["zdropped"].sum())
-        if not 0 < n_drop < B:
-            raise AssertionError("%s: %d of %d pairs Z-dropped" % (m, n_drop,
-                                                                   B))
-        ms = cuda_ms(lambda: run(m), 3)
-        mean_max = float(kern[m]["max"].double().mean())
-        # band cells the data needs: every target column up to the end
-        # (or, Z-dropped, up to the best cell) times the band rows
-        cols = torch.where(kern[m]["zdropped"].bool(),
-                           kern[m]["max_t"].long() + 1, tl.long())
-        rows_b = torch.clamp(ql.long(), max=2 * W + 1)
-        cells = int((cols.clamp(min=0) * rows_b).sum())
-        b_ms, b_by = bound(nbytes(q, ql, tg, tl)
-                           + sum(nbytes(v) for v in kern[m].values()),
-                           cells * OPS_PER_CELL[m])
-        log("B5 %s B=%d W=%d zdrop=%d: equal in all 8 outputs (%d "
-            "Z-dropped, mean max %.1f); kernel %.3f ms, plain %.3f ms, "
-            "bound %.4f ms (%s, %d band cells)"
-            % (m, B, W, zdrop, n_drop, mean_max, ms, pms, b_ms, b_by, cells))
-        out[m] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
-                      bound_by=b_by,
-                      shape="B=%d L<=%d W=%d" % (B, q.shape[1], W))
+    for W, b in EXT_RUNS:
+        for m, gap in modes.items():
+            name = m if W <= NARROW_W else m + "_wide"
+            if not launches.get(name):
+                raise AssertionError("kernel %s was not launched by "
+                                     "extz_batch" % name)
+            got = kern[(m, W)]
+            qb, qlb, tgb, tlb = args(b)
+            t = time.time()
+            plain = ext.extz_batch_plain(qb, qlb, tgb, tlb, W=W, zdrop=zdrop,
+                                         **gap)
+            torch.cuda.synchronize()
+            pms = (time.time() - t) * 1e3
+            err = 0
+            for key in ext.KEYS:
+                err = max(err, require_equal("%s W=%d %s" % (m, W, key),
+                                             got[key], plain[key]))
+            n_drop = int(got["zdropped"].sum())
+            # Z-drop must fire (on the unrelated pairs) but not on every
+            # pair; past every pair (W = 5,000) it need not fire
+            if n_drop >= b or (n_drop == 0 and W <= 255):
+                raise AssertionError("%s W=%d: %d of %d pairs Z-dropped"
+                                     % (m, W, n_drop, b))
+            ms = cuda_ms(lambda: run(m, W, b), 3)
+            mean_max = float(got["max"].double().mean())
+            # band cells the data needs: every target column up to the
+            # end (or, Z-dropped, up to the best cell) times the band
+            # rows that hold query indices
+            cols = torch.where(got["zdropped"].bool(),
+                               got["max_t"].long() + 1, tlb.long())
+            rows_b = torch.clamp(qlb.long(), max=2 * W + 1)
+            cells = int((cols.clamp(min=0) * rows_b).sum())
+            b_ms, b_by = bound(nbytes(qb, qlb, tgb, tlb)
+                               + sum(nbytes(v) for v in got.values()),
+                               cells * OPS_PER_CELL[m])
+            log("B5 %s B=%d W=%d zdrop=%d: equal in all 8 outputs (%d "
+                "Z-dropped, mean max %.1f); kernel %.3f ms, plain %.3f ms, "
+                "bound %.4f ms (%s, %d band cells)"
+                % (name, b, W, zdrop, n_drop, mean_max, ms, pms, b_ms, b_by,
+                   cells))
+            if name not in out:
+                out[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 shape="B=%d L<=%d W=%d"
+                                 % (b, qb.shape[1], W))
+            else:
+                sfx = "_W%d" % W
+                o = out[name]
+                o["max_abs_err"] = max(o["max_abs_err"], err)
+                o.update({"ms" + sfx: ms, "plain_ms" + sfx: pms,
+                          "bound_ms" + sfx: b_ms})
 
     # short pairs against the full-DP host reference (numpy loops)
     sq, sql, st, stl = extension_pairs(rng, genome, 16, 150, 400, 0.12, 0.2)
     t = time.time()
+    W = EXT_RUNS[0][0]
     for m, gap in modes.items():
         res = ext.extz_batch(*(torch.from_numpy(a).to(dev)
                                for a in (sq, sql, st, stl)),
@@ -1011,6 +1111,201 @@ def hpc_filter_run(dev, workdir):
     return launches, (rungs, path_bound)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: a part of the reference's size (-I 4G)
+
+
+def write_fasta(path, reads):
+    with open(path, "w") as f:
+        for r in reads:
+            f.write(">%s\n%s\n" % (r[0], r[1]))
+
+
+class ChunkSample:
+    """on_chunk hook of build_device_index: sums the tiles' emission
+    counts and keeps every chunk entry whose hash is among `hashes`
+    (sorted, on the card), apart from the merge code."""
+
+    def __init__(self, hashes):
+        self.hashes = hashes
+        self.n_exp = []
+        self.parts = []
+
+    def __call__(self, chunk, n):
+        self.n_exp.append(n)
+        self.parts.append(entries_of(chunk, self.hashes))
+
+    def triples(self):
+        import torch
+        return sorted_triples([torch.cat(a) for a in zip(*self.parts)])
+
+
+def entries_of(arrays, hashes):
+    """(h, rid, pos) of the entries of a sorted (ih, irid, ips) whose
+    hash is one of `hashes`."""
+    import torch
+    ih = arrays[0]
+    lo = torch.searchsorted(ih, hashes)
+    cnt = torch.searchsorted(ih, hashes, right=True) - lo
+    start = torch.repeat_interleave(lo, cnt)
+    base = torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt)
+    at = start + torch.arange(int(cnt.sum()), device=ih.device) - base
+    return [a[at] for a in arrays]
+
+
+def sorted_triples(arrays):
+    import numpy as np
+    h, r, p = (a.cpu().numpy().astype(np.int64) for a in arrays)
+    order = np.lexsort((p, r, h))
+    return h[order], r[order], p[order]
+
+
+def big_part_run(dev, workdir):
+    """Phase 9: mmcov through cli.main on a >= 1 Gbp part, then one more
+    build_device_index over the same part, checked apart from the merge
+    code. Returns the mmcov run's launch counts."""
+    import numpy as np
+    import torch
+    from util_synth import make_genome_fast, sample_reads_fast
+    from longqc_tpu_torch import cli
+    from longqc_tpu_torch.engine import device_index as di
+    from longqc_tpu_torch.ops import _ext
+
+    run = BIG_RUN
+    phase, k, w = run["phase"], run["k"], run["w"]
+    t = time.time()
+    rng = np.random.RandomState(run["seed"])
+    genome = make_genome_fast(rng, run["genome"])
+    targets = sample_reads_fast(rng, genome, run["n_targets"],
+                                min_len=run["min_len"],
+                                max_len=run["max_len"], err=run["err"],
+                                junk_frac=run["junk"])
+    del genome
+    queries = targets[:N_QUERIES]
+    tpath = os.path.join(workdir, "big_targets.fa")
+    qpath = os.path.join(workdir, "big_queries.fq")
+    stats_path = os.path.join(workdir, "big_stats.json")
+    write_fasta(tpath, targets)
+    write_fastq(qpath, queries)
+    tbp = sum(len(r[1]) for r in targets)
+    log("%s data: %d targets of %d-%d bp (%d bp, %.2fx of %d bp), err "
+        "%.2f, junk %.2f, %d queries, made in %.1f s"
+        % (phase, run["n_targets"], run["min_len"], run["max_len"], tbp,
+           tbp / run["genome"], run["genome"], run["err"], run["junk"],
+           N_QUERIES, time.time() - t))
+    if tbp < run["min_bp"]:
+        raise AssertionError("%s: the part holds %d bp, under %d"
+                             % (phase, tbp, run["min_bp"]))
+
+    argv = ["mmcov", "-k", str(k), "-w", str(w), "-p", str(run["p"]), "-q",
+            str(run["q"]), "-l", "0", "--device", str(dev), "--stats",
+            stats_path, tpath, qpath]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launches()
+    buf = io.StringIO()
+    t = time.time()
+    with redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = dict(_ext.LAUNCHES)
+    rungs, path_bound = ringprop_rungs(_ext.LAUNCH_SHAPES)
+    peak_mem = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise AssertionError("mmcov returned %d" % rc)
+    with open(stats_path) as f:
+        stats = json.load(f)
+    rows = buf.getvalue().rstrip("\n").split("\n")
+    log("mmcov %s" % " ".join(argv[:-2] + ["big_targets.fa",
+                                           "big_queries.fq"]))
+    log("%s mmcov wall %.2f s; phase_s %s; index_s %s" % (
+        phase, wall, json.dumps({key: round(v, 3)
+                                 for key, v in stats["phase_s"].items()}),
+        json.dumps({key: round(v, 3) for key, v in stats["index_s"].items()})))
+    log("step calls %d, retry steps %d, flag counts %s, host-fixed rows %d, "
+        "host-only parts %d, hash-range parts %d (ranges %s)" % (
+            stats["device_calls"], stats["retry_steps"], stats["flag_counts"],
+            stats["host_fixed_rows"], stats["host_only_parts"],
+            stats["hash_range_parts"], stats["part_ranges"]))
+    log("kernel launches %s; max_memory_allocated %d bytes (%.2f GB)"
+        % (launches, peak_mem, peak_mem / 1e9))
+    log_rungs(phase, rungs, path_bound)
+    check_reader(stats, phase)
+    if len(rows) != N_QUERIES:
+        raise AssertionError("mmcov printed %d rows for %d queries"
+                             % (len(rows), N_QUERIES))
+    if set(launches) != set(run["kernels"]):
+        raise AssertionError("%s must launch %s and no other kernel: %s"
+                             % (phase, run["kernels"], launches))
+    if stats["host_only_parts"] or stats["hash_range_parts"] != 1:
+        raise AssertionError("%s: the part must be built by hash range on "
+                             "the card" % phase)
+    if launches["chain"] != stats["device_calls"]:
+        raise AssertionError("%d step calls but %d B2 launches"
+                             % (stats["device_calls"], launches["chain"]))
+    if stats["host_fixed_rows"] > 0.05 * N_QUERIES:
+        raise AssertionError("host-fixed rows %d exceed 5%% of %d queries"
+                             % (stats["host_fixed_rows"], N_QUERIES))
+    covered = sum(1 for r in rows if r.split("\t")[3] != "0")
+    log("rows with reliable regions: %d / %d" % (covered, N_QUERIES))
+    del buf, rows
+
+    # the index once more, checked apart from the merge code
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(9)
+    hashes = torch.unique(torch.randint(0, 1 << (2 * k),
+                                        (N_SAMPLED_HASHES,),
+                                        generator=gen)).to(dev)
+    sample = ChunkSample(hashes.to(torch.int32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t = time.time()
+    idx = di.build_device_index(targets, k, w, device=dev, on_chunk=sample)
+    torch.cuda.synchronize()
+    build_wall = time.time() - t
+    build_peak = torch.cuda.max_memory_allocated() - held
+    ih = idx["ih"]
+    n_real = int((ih != di.infk(ih.dtype)).sum())
+    log("%s index build: %d tiles, %d real entries in a flat width of %d, "
+        "%d hash ranges, mid_occ %d; %.2f s (%s); peak device memory %d "
+        "bytes above the %d held before (%.2f GB, %.2f bytes per target "
+        "base); the build's reckoning %d bytes"
+        % (phase, idx["n_tiles"], n_real, idx["n_idx"], idx["n_ranges"],
+           int(idx["mid_occ"]), build_wall,
+           json.dumps({key: round(v, 3) for key, v in idx["build_s"].items()}),
+           build_peak, held, build_peak / 1e9, build_peak / tbp,
+           idx["reckoned_bytes"]))
+    if idx["n_ranges"] < 2:
+        raise AssertionError("%s: the index was not built by hash range"
+                             % phase)
+    if not bool((ih[1:] >= ih[:-1]).all()):
+        raise AssertionError("%s: ih is not sorted" % phase)
+    if n_real != sum(sample.n_exp) or n_real != idx["n_real"]:
+        raise AssertionError("%s: %d real entries, the tiles emitted %d"
+                             % (phase, n_real, sum(sample.n_exp)))
+    want = sample.triples()
+    got = sorted_triples(entries_of([ih, idx["irid"], idx["ips"]],
+                                    sample.hashes))
+    same = all(np.array_equal(a, b) for a, b in zip(want, got))
+    log("%d sampled hashes: %d entries in the tiles' chunks, %d in the "
+        "index, multisets %s" % (len(hashes), len(want[0]), len(got[0]),
+                                 "equal" if same else "DIFFER"))
+    if not same or not len(want[0]):
+        raise AssertionError("%s: sampled entries differ" % phase)
+    counts = torch.unique_consecutive(ih[:n_real], return_counts=True)[1]
+    n_keys = counts.numel()
+    kth = min(int((1.0 - 2e-4) * n_keys), n_keys - 1)
+    mo = int(torch.kthvalue(counts.cpu(), kth + 1).values) + 1
+    log("mid_occ %d; kth (%d of %d keys) of torch.unique_consecutive's "
+        "counts + 1: %d" % (int(idx["mid_occ"]), kth, n_keys, mo))
+    if mo != int(idx["mid_occ"]):
+        raise AssertionError("%s: mid_occ differs" % phase)
+    return launches
+
+
 def main():
     t_all = time.time()
     if not os.path.isdir(os.path.join(HERE, "longqc_tpu_torch")):
@@ -1089,6 +1384,9 @@ def main():
         t = time.time()
         launches8, dev_ms8, rungs8 = realistic_mmcov(dev, workdir, HIFI_RUN)
         log("phase 8 %.1f s" % (time.time() - t))
+        t = time.time()
+        launches9 = big_part_run(dev, workdir)
+        log("phase 9 %.1f s" % (time.time() - t))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1119,6 +1417,8 @@ def main():
         if name in HIFI_RUN["kernels"]:
             entry["launches_phase8"] = launches8[name]
             entry["device_ms_phase8"] = dev_ms8[name]
+        if name in BIG_RUN["kernels"]:
+            entry["launches_phase9"] = launches9[name]
         if name in HPC_KERNELS:
             entry["launches_hpc_filter"] = hpc_launches[name]
         for phase, (rungs, path_bound) in (("phase5", rungs5),

@@ -86,7 +86,9 @@ def build_parser():
     p_m.add_argument("--filter", dest="filter", action="store_true",
                      default=False)
     p_m.add_argument("--stats", default=None,
-                     help="write the engine's run counters (JSON) here")
+                     help="write the engine's run counters (JSON) here: "
+                          "phase seconds, step calls, flags, host-fixed "
+                          "rows, host-only and hash-range-built parts")
     p_m.add_argument("--device", default="cuda",
                      help="torch device of the engine (default cuda; "
                           "raises when no GPU is present)")

@@ -4,13 +4,16 @@ The JAX package's device index (engine/device_index.build_device_index:
 ih, irid, ips, mid_occ) and a JAX query group's staged arrays and
 accumulators (engine/device_overlap._Group, with the HPC group's
 per-slot spans and f32 mean-span state) become the port's tensors on a
-given device, so one input can be fed to both packages' step programs
-and their intermediates compared. Everything arrives as numpy arrays
+given device (the card unless the caller asks for the CPU), so one
+input can be fed to both packages' step programs and their
+intermediates compared. Everything arrives as numpy arrays
 (np.asarray of the JAX arrays); this module imports no jax.
 """
 
 import numpy as np
 import torch
+
+from longqc_tpu_torch.ops._ext import require_device
 
 GROUP_ARRAYS = ("qh", "qps", "qcnt", "n_slots", "n_exp", "qlen", "qvalid")
 STATE_ARRAYS = ("lam", "lam2", "avgk_set", "m_cnts")
@@ -19,7 +22,7 @@ HPC_ARRAYS = ("qspan", "avgk_val")
 
 def _t(a, dtype, device):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(dtype))
-                            ).to(device)
+                            ).to(require_device(device))
 
 
 def _hash_lanes(a, device):
@@ -28,7 +31,7 @@ def _hash_lanes(a, device):
     return _t(a, np.int64 if a.dtype == np.int64 else np.int32, device)
 
 
-def index_from_arrays(ih, irid, ips, mid_occ, device="cpu"):
+def index_from_arrays(ih, irid, ips, mid_occ, device="cuda"):
     """A flat JAX index (1-D ih, int32 or int64 for 2k > 30; int32 irid /
     ips; scalar mid_occ) as the port's index dict."""
     ih = np.asarray(ih)
@@ -38,10 +41,11 @@ def index_from_arrays(ih, irid, ips, mid_occ, device="cpu"):
             "irid": _t(irid, np.int32, device),
             "ips": _t(ips, np.int32, device),
             "mid_occ": torch.tensor(int(np.asarray(mid_occ)),
-                                    dtype=torch.int32, device=device)}
+                                    dtype=torch.int32,
+                                    device=require_device(device))}
 
 
-def group_from_arrays(arrays, device="cpu"):
+def group_from_arrays(arrays, device="cuda"):
     """A JAX query group's staged arrays (GROUP_ARRAYS: qh, qps, qcnt,
     n_slots, n_exp, qlen, qvalid) and accumulators (STATE_ARRAYS: lam,
     lam2 int64; avgk_set, m_cnts int32) as port tensors; `arrays` maps

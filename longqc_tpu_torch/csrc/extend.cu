@@ -29,6 +29,25 @@
 // two warp reductions, five shuffles each) times the columns of the
 // longest pair in a warp: latency, with enough warps in flight to hide
 // it, not bytes or operations.
+//
+// The wide body (W >= 64, lq_extend_wide_kernel) takes any band: one
+// block of WIDE_THREADS threads per pair (a grid-stride loop over the
+// pairs), H / E / E2 of the previous and the current column in a
+// ping-pong scratch of 2 x (band + 1) rows each, in dynamic shared
+// memory when it fits and in a per-block slice of device memory
+// otherwise; row `band` of every buffer stays NEG (the row past the
+// last). Per column: the cells' base / E / E2 with rows strided over the
+// threads; the F recurrence as a block-wide exclusive max-scan (each
+// thread a contiguous run of rows, a warp scan of the run totals, the
+// warp totals through shared memory); the column argmax as a block
+// reduction, ties to the smallest row; thread 0 keeps the maxima and
+// Z-drop, which every thread reads after a barrier. Outputs are stated
+// in query and target indices, never in band rows, so each pair's band
+// is clamped to W_b = min(W, max(qlen, columns)): past that every cell
+// with 0 <= qi < qlen and 0 <= j < columns lies inside the band and the
+// rows outside it stay NEG, so the outputs do not change. Bound: the
+// same per-column chain, now five barriers, times the columns of each
+// pair; a simple body that is right, not yet a fast one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -243,6 +262,204 @@ int lq_extend_launch(const void* q, const void* ql, const void* t,
   return (int)cudaGetLastError();
 }
 
+constexpr int WIDE_THREADS = 256;
+constexpr int WIDE_WARPS = WIDE_THREADS / 32;
+
+// inclusive warp max-scan
+__device__ __forceinline__ int warp_incl_max(int x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(LQ_FULL, x, o);
+    if (lane >= o) x = imax(x, y);
+  }
+  return x;
+}
+
+// block-wide exclusive max-scan of one value per thread (NEG before
+// thread 0); `tot` holds the warp totals; ends with a barrier after
+// which `tot` may be written again only past the caller's next barrier
+__device__ __forceinline__ int block_excl_max(int x, int* tot, int lane,
+                                              int warp) {
+  const int incl = warp_incl_max(x, lane);
+  int excl = __shfl_up_sync(LQ_FULL, incl, 1);
+  if (lane == 0) excl = NEG;
+  if (lane == 31) tot[warp] = incl;
+  __syncthreads();
+  int pre = NEG;
+  for (int i = 0; i < warp; ++i) pre = imax(pre, tot[i]);
+  return imax(pre, excl);
+}
+
+template <bool DUAL>
+__global__ void __launch_bounds__(WIDE_THREADS) lq_extend_wide_kernel(
+    const int32_t* __restrict__ q, const int32_t* __restrict__ qlens,
+    const int32_t* __restrict__ t, const int32_t* __restrict__ tlens,
+    int32_t* __restrict__ out, int B, int Lq, int Lt, int W, int match,
+    int mismatch, Gaps g, int zdrop, int32_t* scratch, size_t bstride) {
+  extern __shared__ int32_t smem[];
+  __shared__ int tot1[WIDE_WARPS], tot2[WIDE_WARPS];
+  __shared__ int red_v[WIDE_WARPS], red_r[WIDE_WARPS];
+  __shared__ int s_drop;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int32_t* buf = scratch ? scratch + blockIdx.x * bstride : smem;
+
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const int ql = qlens[b];
+    const int tl = tlens[b];
+    const int ncol = tl < Lt ? tl : Lt;
+    const int Wb = imax(0, W < imax(ql, ncol) ? W : imax(ql, ncol));
+    const int band = 2 * Wb + 1;
+    const int ld = band + 1;
+    int32_t* Hc = buf;
+    int32_t* Hn = buf + ld;
+    int32_t* Ec = buf + 2 * ld;
+    int32_t* En = buf + 3 * ld;
+    int32_t* E2c = buf + 4 * ld;
+    int32_t* E2n = buf + 5 * ld;
+    for (int r = tid; r < 6 * ld; r += nt) buf[r] = NEG;
+    __syncthreads();
+    const int32_t* qrow = q + (size_t)b * Lq;
+    const int32_t* trow = t + (size_t)b * Lt;
+    // thread `tid` owns the contiguous rows [c0, c1) in the scans
+    const int rpt = (band + nt - 1) / nt;
+    const int c0 = tid * rpt < band ? tid * rpt : band;
+    const int c1 = c0 + rpt < band ? c0 + rpt : band;
+    int best = 0, bq = -1, bt = -1, mqe = NEG, mqet = -1, mte = NEG,
+        mteq = -1, dropped = 0;
+
+    for (int j = 0; j < ncol; ++j) {
+      const int tj = trow[j];
+      // cells: row r of the previous column is the diagonal, row r + 1
+      // the horizontal predecessor
+      for (int r = tid; r < band; r += nt) {
+        const int qi = j + r - Wb;
+        const bool qok = qi >= 0 && qi < ql;
+        int hl = Hc[r + 1];
+        int hd;
+        if (j == 0) {
+          hl = -bndcost<DUAL>(qi + 1, g);
+          hd = qi == 0 ? 0 : -bndcost<DUAL>(qi, g);
+        } else {
+          hd = qi == 0 ? -bndcost<DUAL>(j, g) : Hc[r];
+        }
+        const int ej = imax(Ec[r + 1], hl - g.go) - g.ge;
+        const int code = qok && qi < Lq ? qrow[qi] : 4;
+        const bool m = code == tj && code < 4 && tj < 4;
+        int bs = imax(hd + (m ? match : mismatch), ej);
+        int e2j = NEG;
+        if (DUAL) {
+          e2j = imax(E2c[r + 1], hl - g.go2) - g.ge2;
+          bs = imax(bs, e2j);
+        }
+        Hn[r] = qok ? bs : NEG;
+        En[r] = qok ? ej : NEG;
+        if (DUAL) E2n[r] = qok ? e2j : NEG;
+      }
+      __syncthreads();
+
+      // F: exclusive max-scan over rows of base - go + ge * r per family
+      int acc1 = NEG, acc2 = NEG;
+      for (int r = c0; r < c1; ++r) {
+        acc1 = imax(acc1, Hn[r] - g.go + g.ge * r);
+        if (DUAL) acc2 = imax(acc2, Hn[r] - g.go2 + g.ge2 * r);
+      }
+      int run1 = block_excl_max(acc1, tot1, lane, warp);
+      int run2 = DUAL ? block_excl_max(acc2, tot2, lane, warp) : NEG;
+      const int hbnd = -bndcost<DUAL>(j + 1, g);
+      int lmax = NEG, lrow = -1;
+      for (int r = c0; r < c1; ++r) {
+        const int qi = j + r - Wb;
+        const bool qok = qi >= 0 && qi < ql;
+        const int bs = Hn[r];
+        int h = imax(bs, imax(run1 - g.ge * r,
+                              qok ? hbnd - g.go - (qi + 1) * g.ge : NEG));
+        run1 = imax(run1, bs - g.go + g.ge * r);
+        if (DUAL) {
+          h = imax(h, imax(run2 - g.ge2 * r,
+                           qok ? hbnd - g.go2 - (qi + 1) * g.ge2 : NEG));
+          run2 = imax(run2, bs - g.go2 + g.ge2 * r);
+        }
+        h = qok ? h : NEG;
+        Hn[r] = h;
+        // rows ascend, so a strict > keeps the smallest row of a tie
+        if (lrow < 0 || h > lmax) {
+          lmax = h;
+          lrow = r;
+        }
+      }
+      // column argmax: (max, smallest row), threads without rows last
+      int v = lrow < 0 ? NEG - 1 : lmax;
+      int rr = lrow < 0 ? 0x7FFFFFFF : lrow;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const int v2 = __shfl_xor_sync(LQ_FULL, v, o);
+        const int r2 = __shfl_xor_sync(LQ_FULL, rr, o);
+        if (v2 > v || (v2 == v && r2 < rr)) {
+          v = v2;
+          rr = r2;
+        }
+      }
+      if (lane == 0) {
+        red_v[warp] = v;
+        red_r[warp] = rr;
+      }
+      __syncthreads();
+      if (tid == 0) {
+        int col_best = red_v[0], col_r = red_r[0];
+        for (int i = 1; i < nt / 32; ++i)
+          if (red_v[i] > col_best ||
+              (red_v[i] == col_best && red_r[i] < col_r)) {
+            col_best = red_v[i];
+            col_r = red_r[i];
+          }
+        const int col_qi = j + col_r - Wb;
+        if (col_best > best) {
+          best = col_best;
+          bq = col_qi;
+          bt = j;
+        }
+        // the row holding query index ql - 1, if it lies in the band
+        const int rq = ql - 1 - j + Wb;
+        if (rq >= 0 && rq < band && Hn[rq] > mqe) {
+          mqe = Hn[rq];
+          mqet = j;
+        }
+        if (j == tl - 1 && col_best > mte) {
+          mte = col_best;
+          mteq = col_qi;
+        }
+        dropped = best - col_best > zdrop;
+        s_drop = dropped;
+      }
+      __syncthreads();
+      if (s_drop) break;
+      int32_t* x = Hc;
+      Hc = Hn;
+      Hn = x;
+      x = Ec;
+      Ec = En;
+      En = x;
+      x = E2c;
+      E2c = E2n;
+      E2n = x;
+    }
+    if (tid == 0) {
+      out[b] = best;
+      out[(size_t)B + b] = bq;
+      out[(size_t)2 * B + b] = bt;
+      out[(size_t)3 * B + b] = mqe;
+      out[(size_t)4 * B + b] = mqet;
+      out[(size_t)5 * B + b] = mte;
+      out[(size_t)6 * B + b] = mteq;
+      out[(size_t)7 * B + b] = dropped;
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" int lq_extend_fill(const void* q, const void* ql, const void* t,
@@ -265,4 +482,32 @@ extern "C" int lq_extend_fill(const void* q, const void* ql, const void* t,
     return lq_extend_launch<4>(q, ql, t, tl, out, B, Lq, Lt, W, match,
                                mismatch, g, zdrop, dual, st);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int lq_extend_wide_fill(const void* q, const void* ql,
+                                   const void* t, const void* tl, void* out,
+                                   int B, int Lq, int Lt, int W, int Wa,
+                                   int match, int mismatch, int gapo,
+                                   int gape, int gapo2, int gape2, int zdrop,
+                                   int dual, void* scratch, int nblk,
+                                   void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B <= 0) return 0;
+  if (W <= 0 || Wa < 0 || Wa > W) return (int)cudaErrorInvalidValue;
+  const Gaps g{gapo, gape, gapo2, gape2};
+  // six buffers of band + 1 rows at the widest band any pair takes
+  const size_t ints = 6 * (size_t)(2 * Wa + 2);
+  const size_t smem = scratch ? 0 : ints * sizeof(int32_t);
+  const int blocks = scratch ? (nblk < B ? nblk : B) : B;
+  if (dual)
+    lq_extend_wide_kernel<true><<<blocks, WIDE_THREADS, smem, st>>>(
+        (const int32_t*)q, (const int32_t*)ql, (const int32_t*)t,
+        (const int32_t*)tl, (int32_t*)out, B, Lq, Lt, W, match, mismatch, g,
+        zdrop, (int32_t*)scratch, ints);
+  else
+    lq_extend_wide_kernel<false><<<blocks, WIDE_THREADS, smem, st>>>(
+        (const int32_t*)q, (const int32_t*)ql, (const int32_t*)t,
+        (const int32_t*)tl, (int32_t*)out, B, Lq, Lt, W, match, mismatch, g,
+        zdrop, (int32_t*)scratch, ints);
+  return (int)cudaGetLastError();
 }

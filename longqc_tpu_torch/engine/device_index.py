@@ -17,12 +17,27 @@ Single-key sorting (hash only) is exact: within a hash run all entries
 share the k-mer, and anchors that tie on the chain sort keys are
 bit-identical duplicates (see engine/device_overlap).
 
-The port keeps only the flat index. A part past the top of the width
-ladder raises IndexOverflowError and is computed by the exact host
-spec; N_IDX_SIZES tops out at 2^26 entries (0.8 GB of int32 triples,
-a ~200 Mbp part at w = 5; with 2k > 30 the hashes ride int64 lanes,
-512 MB of the then 1.07 GB), which an 80 GB card holds with room to
-spare, so the JAX package's hash-range-sharded layout is not needed.
+Parts whose cropped chunks pass the top of the width ladder (2^26
+slots, ~180 Mbp at w = 5; the reference's default part is -I 4G) take
+the hash-range build instead, which the engine reads through the same
+flat layout: each tile's crop is copied out as soon as it is made, so
+the tile's full R*W storage is freed (a tile whose real entries pass
+its crop is re-run and kept whole); range s of S owns the hashes
+[s << (2k - lg S), (s + 1) << (2k - lg S)), S the least power of two
+for which every range holds at most `range_max` entries (counted, not
+assumed: minimizers favour small hashes, so the low ranges fill first
+and S can come out double what a uniform spread needs); its slice of
+every sorted
+chunk is found by torch.searchsorted, the slices are concatenated and
+sorted alone and written at the range's offset of one flat output,
+sentinel-padded to the real count rounded up to PAD_TO. Every key's run
+lies in one range, so mid_occ comes from the ranges' run lengths. The
+JAX package stacks its ranges as shards of 8M entries because wider
+programs stalled its TPU compiler; the flat array needs no stack, and
+the engine's int32 search offsets hold up to INDEX_MAX entries. A part
+raises IndexOverflowError (the engine computes it with the exact host
+spec) only past `max_entries` real entries or when the reckoned bytes
+of the build exceed the device's free memory.
 
 Hash lanes are int32 for 2k <= 30 and int64 above
 (`ops/sketch_cuda.hash_dtype`), each
@@ -30,13 +45,13 @@ with its dtype's max as the empty-slot sentinel (`infk`), which sorts
 after every real hash; irid / ips are int32 either way.
 """
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from longqc_tpu_torch.io.pack import SEQ_NT4_SKETCH
-from longqc_tpu_torch.ops.ringprop import INF32
 from longqc_tpu_torch.ops.sketch_cuda import (READS_PER_ROW, hash_dtype,
                                               sketch_tiles)
 
@@ -49,6 +64,12 @@ TILE_LADDER = ((256, 8192), (32, 65536), (4, 524288))
 JUMBO_W = 1 << 22          # single-row tiles for ultra-long reads
 # index widths: a part pads to the smallest width that fits
 N_IDX_SIZES = (1 << 21, 1 << 22, 1 << 23, 1 << 24, 1 << 25, 1 << 26)
+
+# the hash-range build (parts past the top width)
+RANGE_MAX = 1 << 26        # entries of one range, sorted at once
+PAD_TO = 1 << 20           # its flat output pads to a multiple of this
+INDEX_MAX = (1 << 31) - 1  # entries the engine's int32 offsets address
+_RL_CAP = 1 << 16          # run lengths histogrammed below this
 
 # small geometry for tests / tiny workloads (same code paths)
 N_IDX_SIZES_SMALL = (1 << 12, 1 << 15, 1 << 17, 1 << 19, 1 << 21,
@@ -282,8 +303,9 @@ def _expand_rows(h2, r2, p2, c2, INFH):
 
 
 class IndexOverflowError(RuntimeError):
-    """The part exceeds the largest index width. Callers fall back to
-    the exact host index for the part."""
+    """The part is empty, holds more entries than the index may address,
+    or its build would not fit the device's free memory. Callers fall
+    back to the exact host index for the part."""
 
 
 def _run_tile(t, k, w, device):
@@ -299,10 +321,7 @@ def _merge_chunks(chunks, n_idx_sizes):
     """Concatenate the tiles' sorted chunks, sentinel-pad to the
     smallest fitting index width, sort once."""
     n_slots = sum(int(c[0].shape[0]) for c in chunks)
-    n_idx = next((s for s in n_idx_sizes if n_slots <= s), None)
-    if n_idx is None:
-        raise IndexOverflowError(
-            "part exceeds the largest index width")
+    n_idx = next(s for s in n_idx_sizes if n_slots <= s)
     dev = chunks[0][0].device
     ehs = [c[0] for c in chunks]
     ers = [c[1] for c in chunks]
@@ -317,38 +336,69 @@ def _merge_chunks(chunks, n_idx_sizes):
     return list(final), n_idx
 
 
+def run_lengths(h):
+    """Per-key run lengths (int64, in key order) of a sorted hash array
+    that holds real entries only."""
+    n = h.shape[0]
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int64, device=h.device)
+    start = torch.ones(n, dtype=torch.bool, device=h.device)
+    start[1:] = h[1:] != h[:-1]
+    pos = torch.nonzero(start).squeeze(1)
+    return torch.diff(pos, append=torch.full((1,), n, dtype=torch.int64,
+                                             device=h.device))
+
+
 def runlen_sorted(ih):
-    """Ascending per-key occurrence counts of the sorted hash array
-    (padded with its dtype's sentinel past the real entries) and n_keys:
-    run starts compact to the front by sorting their positions; each
-    run's length is the gap to the next start (or to n_valid for the
-    last run)."""
-    N = ih.shape[0]
-    BIG = INF32                # past every position (N <= 2^26)
-    idx = torch.arange(N, dtype=torch.int64, device=ih.device)
-    valid = ih != infk(ih.dtype)
-    prev = torch.cat([torch.full((1,), -1, dtype=ih.dtype,
-                                 device=ih.device), ih[:-1]])
-    is_start = valid & (ih != prev)
-    n_keys = is_start.sum()
-    n_valid = valid.sum()
-    sp = torch.sort(torch.where(is_start, idx, BIG)).values
-    nxt = torch.cat([sp[1:], torch.full((1,), BIG, dtype=torch.int64,
-                                        device=ih.device)])
-    rl = torch.where(sp != BIG, torch.minimum(nxt, n_valid) - sp, BIG)
-    return torch.sort(rl).values, n_keys
+    """Ascending per-key occurrence counts (int64) of the sorted hash
+    array (padded with its dtype's sentinel past the real entries) and
+    n_keys; positions are int64, so any width is safe."""
+    n_valid = int((ih != infk(ih.dtype)).sum())
+    rl = run_lengths(ih[:n_valid])
+    return torch.sort(rl).values, rl.shape[0]
 
 
 def _mid_occ_device(ih, *, frac):
     """Occurrence threshold as a 0-d int32 tensor: the kth smallest
     per-key count + 1, kth = min(int((1 - frac) * n_keys), n_keys - 1)
     in f64 like the host spec; 1 for an empty part."""
-    rl_sorted, n_keys = runlen_sorted(ih)
-    n = int(n_keys)
+    rl_sorted, n = runlen_sorted(ih)
     if n == 0:
         return torch.tensor(1, dtype=torch.int32, device=ih.device)
     kth = min(int((1.0 - frac) * n), n - 1)
     return (rl_sorted[kth] + 1).to(torch.int32)
+
+
+class _RunHist:
+    """The occurrence-count multiset of a part accumulated range by
+    range (each key's run lies wholly in one range): a histogram of the
+    counts below _RL_CAP and the exact counts at or above it."""
+
+    def __init__(self, device):
+        self.hist = torch.zeros(_RL_CAP + 1, dtype=torch.int64,
+                                device=device)
+        self.tails = []
+
+    def add(self, sorted_h):
+        rl = run_lengths(sorted_h)
+        self.hist += torch.bincount(rl.clamp(max=_RL_CAP),
+                                    minlength=_RL_CAP + 1)
+        self.tails.append(rl[rl >= _RL_CAP])
+
+    def mid_occ(self, frac):
+        """mid_occ of the whole multiset, as _mid_occ_device."""
+        dev = self.hist.device
+        n = int(self.hist.sum())
+        if n == 0:
+            return torch.tensor(1, dtype=torch.int32, device=dev)
+        kth = min(int((1.0 - frac) * n), n - 1)
+        cum = torch.cumsum(self.hist, 0)
+        v = int(torch.searchsorted(cum, torch.tensor([kth], device=dev),
+                                   right=True)[0])
+        if v >= _RL_CAP:
+            tail = torch.sort(torch.cat(self.tails)).values
+            v = int(tail[kth - int(cum[_RL_CAP - 1])])
+        return torch.tensor(v + 1, dtype=torch.int32, device=dev)
 
 
 def _mid_occ(ih, mid_occ_fixed, mid_occ_frac):
@@ -359,6 +409,18 @@ def _mid_occ(ih, mid_occ_fixed, mid_occ_frac):
 
 
 CROP_NUM, CROP_DEN = 3, 8
+# bytes the build holds besides its chunks and output: per column of the
+# widest tile (B1 outputs, the expansion's int64 temporaries, the
+# chunk's sort) and per entry of one range's sort (the slices, sorted
+# hashes, int64 order, the gathered payloads, the sort's scratch)
+TILE_BYTES_PER_COLUMN = 160
+
+
+def _crop_width(n):
+    """3/8 of a chunk's n slots, rounded up to 1024 (all of a small
+    chunk)."""
+    crop = max((n * CROP_NUM) // CROP_DEN, min(n, 1024))
+    return min(-(-crop // 1024) * 1024, n)
 
 
 def _crop_chunk(c):
@@ -367,34 +429,196 @@ def _crop_chunk(c):
     columns). The caller validates the real count against the crop and
     keeps the full chunk when it does not fit."""
     n = c[0].shape[0]
-    crop = max((n * CROP_NUM) // CROP_DEN, min(n, 1024))
-    crop = min(-(-crop // 1024) * 1024, n)
+    crop = _crop_width(n)
     if crop == n:
         return c, n
     return [a[:crop] for a in c], crop
 
 
-def build_device_index(part, k, w, *, device, ladder=TILE_LADDER,
-                       n_idx_sizes=N_IDX_SIZES, mid_occ_fixed=0,
-                       mid_occ_frac=2e-4):
-    """Build the sorted device index for one part. Returns a dict with
-    ih (hash_dtype(k)) / irid / ips (int32) tensors of width n_idx,
-    mid_occ (0-d int32 tensor), n_idx and n_tiles. Raises
-    IndexOverflowError when the part does not fit the largest width."""
-    tiles, jumbo = pack_part_tiles(part, w, ladder=ladder)
-    tiles = tiles + jumbo
+def _crops_fit(w):
+    """Whether the expected minimizer density 2/(w+1) lies within the
+    3/8 crop (w >= 5); below, chunks stay whole."""
+    return 2 * CROP_DEN <= CROP_NUM * (w + 1)
+
+
+def _compact_width(t, w):
+    """The hash-range build's crop of a tile: 3/8 of the columns its
+    rows use (emissions never exceed them; rows end short of W), rounded
+    up to 1024, at most R*W; all of it when crops do not fit w."""
+    n = t.R * t.W
+    if not _crops_fit(w):
+        return n
+    crop = int(t.used.sum()) * CROP_NUM // CROP_DEN + 1
+    return min(-(-crop // 1024) * 1024, n)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def reckon_bytes(tiles, k, w, range_max):
+    """Device bytes the hash-range build of `tiles` holds at its peak:
+    the compacted chunks, the flat output (at most their slots), the
+    widest tile's transients and one range's sort."""
+    eb = (8 if 2 * k > 30 else 4) + 8          # hash + irid + ips
+    slots = sum(_compact_width(t, w) for t in tiles)
+    widest = max(t.R * t.W for t in tiles)
+    return (2 * slots * eb + widest * TILE_BYTES_PER_COLUMN
+            + range_max * (4 * eb + 8))
+
+
+def free_bytes(device):
+    """Device bytes this process can still take: the card's free memory
+    (torch.cuda.mem_get_info) plus what PyTorch's cache holds unused;
+    None (no limit) on the CPU."""
+    if device.type != "cuda":
+        return None
+    free, _total = torch.cuda.mem_get_info(device)
+    return free + (torch.cuda.memory_reserved(device)
+                   - torch.cuda.memory_allocated(device))
+
+
+def _ladder_chunks(tiles, k, w, device):
+    """Every tile's chunk, cropped after the one sync where its real
+    entries fit the crop (the crops are views of the full chunks)."""
     results = [_run_tile(t, k, w, device) for t in tiles]
     # one sync per part: the real entry counts
-    n_exp = torch.stack([r[3] for r in results]).cpu().tolist() \
-        if results else []
+    n_exp = torch.stack([r[3] for r in results]).cpu().tolist()
     chunks = []
     for r, n in zip(results, n_exp):
         c, crop = _crop_chunk(list(r[:3]))
         chunks.append(list(r[:3]) if n > crop else c)
-    if not chunks:
+    return chunks, n_exp
+
+
+def _compact_chunks(tiles, k, w, device):
+    """Every tile's chunk, its crop (_compact_width) copied out as soon
+    as it is made so the tile's full R*W storage is freed; after the one
+    sync, a tile whose real entries pass its crop is re-run and kept
+    whole."""
+    chunks, counts = [], []
+    for t in tiles:
+        r = _run_tile(t, k, w, device)
+        crop = _compact_width(t, w)
+        c = list(r[:3])
+        if crop < c[0].shape[0]:
+            c = [a[:crop].clone() for a in c]
+        chunks.append(c)
+        counts.append(r[3])
+        del r
+    n_exp = torch.stack(counts).cpu().tolist()
+    for i, (t, n) in enumerate(zip(tiles, n_exp)):
+        if n > chunks[i][0].shape[0]:
+            chunks[i] = list(_run_tile(t, k, w, device)[:3])
+    return chunks, n_exp
+
+
+def _range_merge(chunks, k, n_real, range_max, mid_occ_fixed,
+                 mid_occ_frac):
+    """Hash-range merge of sorted chunks into one flat sorted index of
+    PAD_TO-padded width. Returns ([ih, irid, ips], S, mid_occ)."""
+    dev = chunks[0][0].device
+    hdt = chunks[0][0].dtype
+    kb = 2 * k
+    lg_f = min(kb, 12)
+    F = 1 << lg_f
+    # F fine ranges; S ranges are runs of F / S of them. The last
+    # boundary, 2^2k, lies past every hash and below the sentinel
+    bnd = (torch.arange(F + 1, dtype=torch.int64) << (kb - lg_f)).to(
+        device=dev, dtype=hdt)
+    offs = torch.stack([torch.searchsorted(c[0], bnd) for c in chunks]
+                       ).cpu()
+    fine = (offs[:, 1:] - offs[:, :-1]).sum(0)
+    if int(fine.sum()) != n_real:
+        raise RuntimeError("hash ranges hold %d entries, the tiles %d"
+                           % (int(fine.sum()), n_real))
+    S = 1
+    while S < F and int(fine.reshape(S, -1).sum(1).max()) > range_max:
+        S *= 2
+    cuts = offs[:, ::F // S].tolist()          # (chunks, S + 1)
+    n_out = min(max(-(-n_real // PAD_TO), 1) * PAD_TO, INDEX_MAX)
+    ih = torch.full((n_out,), infk(hdt), dtype=hdt, device=dev)
+    irid = torch.zeros(n_out, dtype=torch.int32, device=dev)
+    ips = torch.zeros(n_out, dtype=torch.int32, device=dev)
+    hist = None if mid_occ_fixed else _RunHist(dev)
+    at = 0
+    for s in range(S):
+        sl = [(c, row[s], row[s + 1]) for c, row in zip(chunks, cuts)
+              if row[s + 1] > row[s]]
+        n = sum(b - a for _c, a, b in sl)
+        if n == 0:
+            continue
+        sh, order = torch.sort(torch.cat([c[0][a:b] for c, a, b in sl]))
+        ih[at:at + n] = sh
+        if hist is not None:
+            hist.add(sh)
+        del sh
+        for i, out in ((1, irid), (2, ips)):
+            out[at:at + n] = torch.cat([c[i][a:b] for c, a, b in sl])[order]
+        at += n
+    if hist is None:
+        mo = torch.tensor(int(mid_occ_fixed), dtype=torch.int32, device=dev)
+    else:
+        mo = hist.mid_occ(mid_occ_frac)
+    return [ih, irid, ips], S, mo
+
+
+def build_device_index(part, k, w, *, device, ladder=TILE_LADDER,
+                       n_idx_sizes=N_IDX_SIZES, mid_occ_fixed=0,
+                       mid_occ_frac=2e-4, range_max=RANGE_MAX,
+                       max_entries=INDEX_MAX, mem_free=None, on_chunk=None):
+    """Build the sorted device index for one part. Returns a dict with
+    ih (hash_dtype(k)) / irid / ips (int32) flat tensors of width
+    n_idx, mid_occ (0-d int32 tensor), n_tiles, n_real (real entries),
+    n_ranges (the hash-range build's S; 0 when the part fit the width
+    ladder), reckoned_bytes (reckon_bytes of that build; 0 on the
+    ladder) and build_s (seconds: host packing, B1 plus chunks, the
+    merge). Raises IndexOverflowError for an empty part, past
+    max_entries real entries, or when a part past the ladder would need
+    more device bytes (reckon_bytes) than mem_free (default: what
+    free_bytes reports). on_chunk(chunk, n_real), if given, sees every
+    tile's final sorted chunk before the merge."""
+    device = torch.device(device)
+    t0 = time.time()
+    tiles, jumbo = pack_part_tiles(part, w, ladder=ladder)
+    tiles = tiles + jumbo
+    if not tiles:
         raise IndexOverflowError("empty part")
-    final, n_idx = _merge_chunks(chunks, n_idx_sizes)
-    mo = _mid_occ(final[0], mid_occ_fixed, mid_occ_frac)
+    secs = {"pack": time.time() - t0}
+    t0 = time.time()
+    need = 0
+    if sum(_crop_width(t.R * t.W) for t in tiles) <= n_idx_sizes[-1]:
+        chunks, n_exp = _ladder_chunks(tiles, k, w, device)
+    else:
+        need = reckon_bytes(tiles, k, w, range_max)
+        free = free_bytes(device) if mem_free is None else mem_free
+        if free is not None and need > free:
+            raise IndexOverflowError("the part's index build needs ~%d "
+                                     "device bytes, %d are free"
+                                     % (need, free))
+        chunks, n_exp = _compact_chunks(tiles, k, w, device)
+    secs["tiles"] = time.time() - t0
+    n_real = sum(n_exp)
+    if n_real > max_entries:
+        raise IndexOverflowError("part of %d index entries exceeds %d"
+                                 % (n_real, max_entries))
+    if on_chunk is not None:
+        for c, n in zip(chunks, n_exp):
+            on_chunk(c, n)
+    t0 = time.time()
+    if sum(int(c[0].shape[0]) for c in chunks) <= n_idx_sizes[-1]:
+        final, n_idx = _merge_chunks(chunks, n_idx_sizes)
+        mo = _mid_occ(final[0], mid_occ_fixed, mid_occ_frac)
+        n_ranges = 0
+    else:
+        final, n_ranges, mo = _range_merge(chunks, k, n_real, range_max,
+                                           mid_occ_fixed, mid_occ_frac)
+        n_idx = int(final[0].shape[0])
+    del chunks
+    _sync(device)
+    secs["merge"] = time.time() - t0
     ih, irid, ips = final
     return {"ih": ih, "irid": irid, "ips": ips, "mid_occ": mo,
-            "n_idx": n_idx, "n_tiles": len(tiles)}
+            "n_idx": n_idx, "n_tiles": len(tiles), "n_real": n_real,
+            "n_ranges": n_ranges, "build_s": secs, "reckoned_bytes": need}

@@ -190,7 +190,8 @@ def _count_expanded(ih, qh, qcnt, n_slots, mid_occ, *, mcrop=None):
     slot_on = _ar(mc, qh)[None, :] < n_slots[:, None]
     qs = torch.where(slot_on, qh_c, 0)
     # right(q) == left(q + 1) for integer keys (hashes < 2^2k, below the
-    # sentinel of their lanes; ih and qh share one dtype)
+    # sentinel of their lanes; ih and qh share one dtype). An index is at
+    # most di.INDEX_MAX = 2^31 - 1 wide, so every position fits int32
     lr = torch.searchsorted(ih, torch.cat([qs, qs + 1], dim=1),
                             out_int32=True)
     left = lr[:, :mc]
@@ -271,6 +272,7 @@ def _collect_anchors(irid, ips, rid_rank, mid_occ, left_slot, occ_slot,
     js_a0 = torch.gather(js_slot, 1, e_clip)
     idx_run = t_in_s % occ_a.clamp(min=1)
     N = irid.shape[0]
+    # int64 (idx_run is): left + occ <= N <= 2^31 - 1 never wraps
     slot = (left_a + idx_run).clamp(0, N - 1)
     rid_a = irid[slot]
     ps_a = ips[slot]
@@ -667,6 +669,7 @@ class _Group:
     def __init__(self, qids, reads, k, w, device, lanes=GROUP_Q,
                  hpc=False):
         self.lanes = lanes
+        self.device = device
         self.qids = qids                     # lane -> global query index
         self.hpc = hpc
         self.blen = _len_bucket(max(len(reads[i][1]) for i in qids))
@@ -747,7 +750,8 @@ class _Group:
             out = []
             for r in range(self.lanes):
                 if r < len(self.qids) and self.perm_host[r]:
-                    out.append(resketch([reads[self.qids[r]]], k, w)[0])
+                    out.append(resketch([reads[self.qids[r]]], k, w,
+                                        device=self.device)[0])
                     continue
                 n = min(int(ns[r]), self.M)
                 rep = np.repeat(np.arange(n), qcnt[r, :n])
@@ -763,13 +767,17 @@ class _Group:
 class _PartIndex:
     """Device index over one target part + host-side metadata (name
     ranks for the AVA order, rid-indexed seq_lens) and the lazy exact
-    host index for the per-row fallback. On IndexOverflowError the part
-    is host_only and every row is computed by the host spec. HPC parts
-    (the small spike-in control targets, longQC.py:255) take the host
-    spec's index, moved to the device layout."""
+    host index for the per-row fallback. Parts past the width ladder
+    take the hash-range build into the same flat layout (n_ranges > 0);
+    on IndexOverflowError (past max_entries entries, or a build larger
+    than the device's free memory) the part is host_only and every row
+    is computed by the host spec. HPC parts (the small spike-in control
+    targets, longQC.py:255) take the host spec's index, moved to the
+    device layout, and keep the ladder: past it they are host_only."""
 
     def __init__(self, part, k, w, mid_occ_fixed, mid_occ_frac, ladder,
-                 n_idx_sizes, device, hpc=False):
+                 n_idx_sizes, device, hpc=False, range_max=di.RANGE_MAX,
+                 max_entries=di.INDEX_MAX):
         self.part = part
         self.names = [r[0] for r in part]
         uniq = sorted(set(self.names))
@@ -777,6 +785,7 @@ class _PartIndex:
         self.sorted_names = uniq
         B = len(part)
         if B >= 1 << 24:
+            # the JAX engine's limit too: anchors pack rev << 24 | rid
             raise ValueError("part of %d reads exceeds the 24-bit read id "
                              "of the anchor keys" % B)
         self.B_pad = next(b for b in B_PADS if B <= b)
@@ -792,6 +801,8 @@ class _PartIndex:
         self._k, self._w = k, w
         self.device = device
         self.ih = self.irid = self.ips = self.mid_occ = None
+        self.n_ranges = 0
+        self.build_s = {}
         if hpc:
             self._host_index = hidx = oh.build_index(part, k, w,
                                                      is_hpc=True,
@@ -815,9 +826,12 @@ class _PartIndex:
             idx = di.build_device_index(
                 part, k, w, device=device, ladder=ladder,
                 n_idx_sizes=n_idx_sizes, mid_occ_fixed=mid_occ_fixed,
-                mid_occ_frac=mid_occ_frac)
+                mid_occ_frac=mid_occ_frac, range_max=range_max,
+                max_entries=max_entries)
             self.ih, self.irid, self.ips = idx["ih"], idx["irid"], idx["ips"]
             self.mid_occ = idx["mid_occ"]
+            self.n_ranges = idx["n_ranges"]
+            self.build_s = idx["build_s"]
         except di.IndexOverflowError:
             logger.warning("device index overflow; part falls back to "
                            "the host path")
@@ -864,6 +878,10 @@ class DeviceOverlapEngine:
         else:
             self.tile_ladder = di.TILE_LADDER_SMALL
             self.n_idx_sizes = di.N_IDX_SIZES_SMALL
+        # parts past the width ladder: entries per hash range, and the
+        # most entries a part's index may hold
+        self.range_max = di.RANGE_MAX
+        self.max_index_entries = di.INDEX_MAX
         self.lanes = GROUP_Q
         self.queries = query_reads
         by_bucket = {}
@@ -877,22 +895,34 @@ class DeviceOverlapEngine:
         self._host_state_done = set()
         self.n_host_fallback = 0
         self.n_host_only_parts = 0
+        self.part_ranges = []     # per part: hash ranges (0: the ladder)
         self.n_device_calls = 0
         self.n_retry_steps = 0
         self.phase_s = defaultdict(float)   # wall time per phase
+        self.index_s = defaultdict(float)   # `index` split by build step
         self.flag_counts = defaultdict(int)
 
     def stats(self):
-        """Run counters: wall seconds per phase, step calls and retry
-        steps, final flag counts by bit pattern, host-fixed rows and
-        host-only parts."""
+        """Run counters: wall seconds per phase (and of the device index
+        builds: host packing, B1 plus chunks, the merge), step calls and
+        retry steps, final flag counts by bit pattern, host-fixed rows,
+        host-only parts, parts built by hash range and each part's
+        number of hash ranges."""
         return {"phase_s": dict(self.phase_s),
+                "index_s": dict(self.index_s),
                 "device_calls": self.n_device_calls,
                 "retry_steps": self.n_retry_steps,
                 "flag_counts": {str(k): v for k, v in
                                 sorted(self.flag_counts.items())},
                 "host_fixed_rows": self.n_host_fallback,
-                "host_only_parts": self.n_host_only_parts}
+                "host_only_parts": self.n_host_only_parts,
+                "hash_range_parts": self.n_hash_range_parts,
+                "part_ranges": list(self.part_ranges)}
+
+    @property
+    def n_hash_range_parts(self):
+        """Parts whose device index was built by hash range."""
+        return sum(1 for s in self.part_ranges if s)
 
     @property
     def groups(self):
@@ -922,8 +952,13 @@ class DeviceOverlapEngine:
             t0 = time.time()
             pidx = _PartIndex(part, self.k, self.w, cfg.map.mid_occ,
                               cfg.map.mid_occ_frac, self.tile_ladder,
-                              self.n_idx_sizes, self.device, hpc=self.hpc)
+                              self.n_idx_sizes, self.device, hpc=self.hpc,
+                              range_max=self.range_max,
+                              max_entries=self.max_index_entries)
             self.phase_s["index"] += time.time() - t0
+            self.part_ranges.append(pidx.n_ranges)
+            for key, v in pidx.build_s.items():
+                self.index_s[key] += v
             self._run_part(pidx)
         t0 = time.time()
         rows = self._finalize()
@@ -1036,8 +1071,8 @@ class DeviceOverlapEngine:
         whatever remains flagged is recomputed exactly on the host."""
         if pidx.host_only:
             self.n_host_only_parts += 1
-            logger.warning("part exceeds the device-index ceiling; "
-                           "computed by the exact host path")
+            logger.warning("part has no device index; computed by the "
+                           "exact host path")
             t0 = time.time()
             for g in self.groups:
                 self._host_fix(g, pidx, list(range(len(g.qids))))

@@ -32,6 +32,7 @@ import torch
 
 from longqc_tpu_torch.config import OverlapConfig
 from longqc_tpu_torch.io.pack import pack_reads
+from longqc_tpu_torch.ops._ext import require_device
 from longqc_tpu_torch.ops.quality import mean_q_host
 from longqc_tpu_torch.ops.sketch import sketch_batch, sketch_to_lists
 from longqc_tpu_torch.ops.sketch_hpc import sketch_reads_hpc
@@ -94,10 +95,12 @@ def _len_bucket(n):
     return b
 
 
-def sketch_reads_device(reads, k, w, batch_size=128, device="cpu"):
+def sketch_reads_device(reads, k, w, batch_size=128, device="cuda"):
     """Sketch a list of [name, seq, qual] with the tensor sketch on
-    `device`, returning per-read (hash, pos, strand, span) arrays in
-    input order. Reads are bucketed by padded length and batched."""
+    `device` (the card unless the caller asks for the CPU), returning
+    per-read (hash, pos, strand, span) arrays in input order. Reads are
+    bucketed by padded length and batched."""
+    device = require_device(device)
     buckets = {}
     for i, r in enumerate(reads):
         buckets.setdefault(_len_bucket(len(r[1])), []).append(i)
@@ -122,7 +125,7 @@ def _sketch_reads(reads, k, w, is_hpc, device):
 
 
 def build_index(target_reads, k, w, is_hpc=False, sketches=None,
-                device="cpu"):
+                device="cuda"):
     sketches = sketches or _sketch_reads(target_reads, k, w, is_hpc, device)
     hs, rids, ps = [], [], []
     for rid, (h, pos, strand, _span) in enumerate(sketches):
@@ -578,13 +581,14 @@ def iter_index_parts(target_iter, batch_size, mini_batch_size=50_000_000):
 
 
 def overlap_run(target_iter, query_reads, cfg: OverlapConfig,
-                device="cpu"):
+                device="cuda"):
     """Full engine run -> list of 9-column TSV row strings
     (cf. minimap2-coverage.c:545-617).
 
     target_iter: iterable of [name, seq, qual] — consumed once,
     streamed part by part (bounded memory).
-    device: where the tensor sketch runs (the rest is host numpy).
+    device: where the tensor sketch runs (the rest is host numpy); the
+    card unless the caller asks for the CPU.
     """
     k, w = cfg.index.k, cfg.index.w
     hpc = cfg.index.is_hpc

@@ -44,15 +44,17 @@ def extz_batch(query, qlens, target, tlens, *, W, match=2, mismatch=-4,
     """Batched banded extension of (B, Lq) query and (B, Lt) target code
     arrays (0..3 = ACGT, 4 = ambiguous: always a mismatch) with (B,)
     lengths; gapo2/gape2 switch on extd. Inputs are tensors or numpy
-    arrays; `device` (default: the query's device, the CPU for numpy)
-    says where the run happens, and a CUDA device that is not there
-    raises. Returns a dict of (B,) tensors under KEYS (zdropped bool)."""
+    arrays; `device` (default: the query's device, CUDA for numpy) says
+    where the run happens, and a CUDA device that is not there raises.
+    Any W > 0 runs (the kernel clamps each pair's band to min(W,
+    max(qlen, columns)), which leaves every output as it is). Returns a
+    dict of (B,) tensors under KEYS (zdropped bool)."""
     if W <= 0:
         raise ValueError("half band width W must be positive")
     if (gapo2 is None) != (gape2 is None):
         raise ValueError("extd needs both gapo2 and gape2")
     if device is None:
-        device = query.device if isinstance(query, torch.Tensor) else "cpu"
+        device = query.device if isinstance(query, torch.Tensor) else "cuda"
     device = _ext.require_device(device)
     ins = [_as_tensor(a, device) for a in (query, qlens, target, tlens)]
     kw = dict(W=W, match=match, mismatch=mismatch, gapo=gapo, gape=gape,

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from longqc_tpu_torch.io.pack import SEQ_NT4_SKETCH
+from longqc_tpu_torch.ops._ext import require_device
 from longqc_tpu_torch.ops.sketch import sketch_batch, sketch_to_lists
 
 
@@ -72,9 +73,11 @@ def pack_hpc(comp, L):
     return codes, lengths, positions, spans
 
 
-def sketch_reads_hpc(reads, k, w, batch_size=128, device="cpu"):
-    """HPC sketch of [name, seq, qual] reads on `device` -> per-read
+def sketch_reads_hpc(reads, k, w, batch_size=128, device="cuda"):
+    """HPC sketch of [name, seq, qual] reads on `device` (the card
+    unless the caller asks for the CPU) -> per-read
     (hash, pos, strand, span) arrays (the sketch_to_lists contract)."""
+    device = require_device(device)
     comp = [hpc_compress(r[1], k) for r in reads]
     out = [None] * len(reads)
     buckets = {}

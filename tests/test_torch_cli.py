@@ -45,6 +45,8 @@ def test_mmcov_output_matches_jax_package(tmp_path, capsys, flags):
     with open(stats) as f:
         st = json.load(f)
     assert st["device_calls"] >= 1 and "step" in st["phase_s"]
+    assert st["hash_range_parts"] == st["host_only_parts"] == 0
+    assert set(st["index_s"]) == {"pack", "tiles", "merge"}
 
 
 def test_mmcov_wide_hashes_match_jax_package(tmp_path, capsys):

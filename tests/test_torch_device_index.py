@@ -28,7 +28,7 @@ def test_build_device_index_matches_jax(k, w):
     assert (np.diff(idx["ih"].numpy()) >= 0).all()
     assert int(idx["mid_occ"]) == int(np.asarray(jidx["mid_occ"]))
     # and the port's host spec index holds the same entries
-    hidx = toh.build_index(part, k, w)
+    hidx = toh.build_index(part, k, w, device="cpu")
     want = sorted(zip(hidx.h.astype(np.uint32).astype(np.int32).tolist(),
                       hidx.rid.tolist(), hidx.ps.tolist()))
     assert got == want
@@ -65,10 +65,22 @@ def test_tile_flat_chunks_match_jax_tiles():
 
 
 def test_part_past_the_width_ladder_raises():
+    """A part past the width ladder takes the hash-range build; past the
+    entry limit (shrunk here) or the free device memory it raises, and
+    the engine computes it on the host."""
     rng = np.random.RandomState(3)
     part = _rand_reads(rng, 30, 200, 600)
-    with pytest.raises(di.IndexOverflowError):
+    idx = di.build_device_index(part, 12, 5, device="cpu",
+                                ladder=di.TILE_LADDER_SMALL,
+                                n_idx_sizes=(1 << 10,))
+    assert idx["n_ranges"] >= 1 and idx["n_real"] > 1 << 10
+    with pytest.raises(di.IndexOverflowError, match="entries"):
         di.build_device_index(part, 12, 5, device="cpu",
                               ladder=di.TILE_LADDER_SMALL,
-                              n_idx_sizes=(1 << 10,))
+                              n_idx_sizes=(1 << 10,),
+                              max_entries=idx["n_real"] - 1)
+    with pytest.raises(di.IndexOverflowError, match="device bytes"):
+        di.build_device_index(part, 12, 5, device="cpu",
+                              ladder=di.TILE_LADDER_SMALL,
+                              n_idx_sizes=(1 << 10,), mem_free=1 << 20)
     assert torch.get_num_threads() == 2

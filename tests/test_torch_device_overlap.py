@@ -134,10 +134,11 @@ def test_count_and_step_match_jax_through_convert(err, k, w):
 
     jcnt, jleft, jocc = jdo._count_expanded(
         jp.ih, jg.qh, jg.qcnt, jg.n_slots, jp.mid_occ, mcrop=jg.count_crop())
-    idx = convert.index_from_arrays(jp.ih, jp.irid, jp.ips, jp.mid_occ)
+    idx = convert.index_from_arrays(jp.ih, jp.irid, jp.ips, jp.mid_occ,
+                                    device="cpu")
     arrays = {n: np.asarray(getattr(jg, n))
               for n in convert.GROUP_ARRAYS + convert.STATE_ARRAYS}
-    g = convert.group_from_arrays(arrays)
+    g = convert.group_from_arrays(arrays, device="cpu")
     hdt = torch.int64 if 2 * k > 30 else torch.int32
     assert idx["ih"].dtype == g["qh"].dtype == hdt
     cnt, left, occ = tdo._count_expanded(idx["ih"], g["qh"], g["qcnt"],
@@ -224,9 +225,10 @@ def test_rows_match_jax_host_host_only_boundary():
     cfg_t, cfg_j = _cfgs()
     want = joh.overlap_run(list(reads), queries, cfg_j)
     eng = tdo.DeviceOverlapEngine(cfg_t, queries, device="cpu")
-    eng.n_idx_sizes = (1 << 10,)     # the part overflows the width ladder
+    eng.n_idx_sizes = (1 << 10,)     # the part passes the width ladder
+    eng.max_index_entries = 1 << 10  # and the entries an index may hold
     assert eng.run(list(reads)) == want
-    assert eng.n_host_only_parts == 1
+    assert eng.n_host_only_parts == 1 and eng.n_hash_range_parts == 0
     assert eng.n_host_fallback == len(queries)
 
 

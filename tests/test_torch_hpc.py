@@ -93,7 +93,7 @@ def test_hpc_sketch_batch_matches_jax(k, w):
     for a, b in zip(jhpc.sketch_reads_hpc([["r", s, ""] for s in reads],
                                           k, w),
                     thpc.sketch_reads_hpc([["r", s, ""] for s in reads],
-                                          k, w)):
+                                          k, w, device="cpu")):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x.astype(np.int64),
                                           y.astype(np.int64))
@@ -135,7 +135,8 @@ def test_hpc_host_spec_rows_match_jax():
     target, reads = _filter_input()
     cfg_t, cfg_j = _cfgs(True)
     want = joh.overlap_run(list(target), reads, cfg_j)
-    assert toh.overlap_run(list(target), reads, cfg_t) == want
+    assert toh.overlap_run(list(target), reads, cfg_t,
+                           device="cpu") == want
     assert sum(r.split("\t")[3] != "0" for r in want) > 20
 
 
@@ -257,7 +258,8 @@ def test_hpc_engine_rows_match_jax_engine_and_host(case):
         cfg_t, cfg_j = _cfgs(False, min_score_med=80, min_score_good=160)
     want = joh.overlap_run(list(targets), queries, cfg_j)
     assert overlap_run_device2(list(targets), queries, cfg_j) == want
-    assert toh.overlap_run(list(targets), queries, cfg_t) == want
+    assert toh.overlap_run(list(targets), queries, cfg_t,
+                           device="cpu") == want
     eng = DeviceOverlapEngine(cfg_t, queries, device="cpu")
     assert eng.run(list(targets)) == want
     assert eng.n_device_calls >= 1
@@ -284,10 +286,11 @@ def test_hpc_step_matches_jax_through_convert():
     qbisect = np.zeros(Q, np.int32)
     jcnt, jleft, jocc = jdo._count_expanded(
         jp.ih, jg.qh, jg.qcnt, jg.n_slots, jp.mid_occ, mcrop=jg.count_crop())
-    idx = convert.index_from_arrays(jp.ih, jp.irid, jp.ips, jp.mid_occ)
+    idx = convert.index_from_arrays(jp.ih, jp.irid, jp.ips, jp.mid_occ,
+                                    device="cpu")
     arrays = {n: np.asarray(getattr(jg, n)) for n in
               convert.GROUP_ARRAYS + convert.STATE_ARRAYS + convert.HPC_ARRAYS}
-    g = convert.group_from_arrays(arrays)
+    g = convert.group_from_arrays(arrays, device="cpu")
     cnt, left, occ = tdo._count_expanded(idx["ih"], g["qh"], g["qcnt"],
                                          g["n_slots"], idx["mid_occ"],
                                          mcrop=jg.count_crop())

@@ -4,6 +4,7 @@ the CPU paths, and never falls back from CUDA to the CPU on its own."""
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 import torch_util  # noqa: F401
@@ -80,3 +81,43 @@ def test_unported_configs_raise(cfg, match):
 
     with pytest.raises(NotImplementedError, match=match):
         overlap_run_device([], [["q", "ACGT" * 50, ""]], cfg, device="cpu")
+
+
+def _entry_calls():
+    from longqc_tpu_torch import convert
+    from longqc_tpu_torch.engine import overlap_host as oh
+    from longqc_tpu_torch.ops import extend, sketch_hpc
+
+    reads = [["r", "ACGTTGCAAGGCTTAACCGG" * 20, ""]]
+    cfg = OverlapConfig(index=IndexOpt(k=12, w=5), map=MapOpt(),
+                        flt=FltOpt())
+    codes = np.zeros((2, 16), np.int32)
+    lens = np.full(2, 16, np.int32)
+    z = np.zeros(4, np.int32)
+    arrays = {n: np.zeros((2, 4), np.int32)
+              for n in convert.GROUP_ARRAYS + convert.STATE_ARRAYS}
+    return {
+        "extz_batch": lambda: extend.extz_batch(codes, lens, codes, lens,
+                                                W=4),
+        "overlap_run": lambda: oh.overlap_run(list(reads), reads, cfg),
+        "build_index": lambda: oh.build_index(reads, 12, 5),
+        "sketch_reads_device": lambda: oh.sketch_reads_device(reads, 12, 5),
+        "sketch_reads_hpc": lambda: sketch_hpc.sketch_reads_hpc(reads, 15,
+                                                                10),
+        "index_from_arrays": lambda: convert.index_from_arrays(z, z, z, 3),
+        "group_from_arrays": lambda: convert.group_from_arrays(arrays),
+    }
+
+
+@pytest.mark.parametrize("name", ["extz_batch", "overlap_run", "build_index",
+                                  "sketch_reads_device", "sketch_reads_hpc",
+                                  "index_from_arrays", "group_from_arrays"])
+def test_entry_points_default_to_the_card(name):
+    """With no device given, numpy inputs go to the card: where there is
+    none the call raises instead of running on the CPU."""
+    call = _entry_calls()[name]
+    if torch.cuda.is_available():
+        call()
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -190,17 +190,39 @@ def _ext_pairs(rng, B, Lq, Lt):
     return [torch.from_numpy(a.astype(np.int32)) for a in (q, ql, t, tl)]
 
 
-@pytest.mark.parametrize("W", [1, 15, 16, 32, 40, 63])
+@pytest.mark.parametrize("W", [1, 15, 16, 32, 40, 63, 64, 255, 5000])
 @pytest.mark.parametrize("mode", ["extz", "extd"])
 def test_extend_kernel_matches_plain(dev, mode, W):
+    """W <= 63 takes the one-warp body, wider W the block-per-pair body;
+    W = 5000 lies past every pair (lengths up to 720), so its band is
+    clamped per pair, while the plain version runs the full band."""
+    from longqc_tpu_torch.ops import _ext
     rng = np.random.RandomState(W)
     q, ql, t, tl = (a.to(dev) for a in _ext_pairs(rng, 300, 700, 650))
     gap = {"gapo2": 24, "gape2": 1} if mode == "extd" else {}
+    name = mode + ("_wide" if W > 63 else "")
     for zdrop in (100, 400):
+        n0 = _ext.LAUNCHES[name]
         k = ext.extz_batch(q, ql, t, tl, W=W, zdrop=zdrop, **gap)
+        assert _ext.LAUNCHES[name] == n0 + 1
         p = ext.extz_batch_plain(q, ql, t, tl, W=W, zdrop=zdrop, **gap)
         for key in ext.KEYS:
             assert torch.equal(k[key], p[key]), key
         assert bool(k["zdropped"].any()) and not bool(k["zdropped"].all())
-    with pytest.raises(ValueError):
-        ext.extz_batch(q, ql, t, tl, W=64, **gap)
+
+
+@pytest.mark.parametrize("mode", ["extz", "extd"])
+def test_extend_wide_band_in_device_memory(dev, mode, monkeypatch):
+    """The wide body with its band in device memory (no shared memory
+    allowed) and 7 blocks walking the 300 pairs."""
+    from longqc_tpu_torch.ops import extend_cuda
+    monkeypatch.setattr(extend_cuda, "SMEM_BYTES", 0)
+    monkeypatch.setattr(extend_cuda, "WIDE_BLOCKS", 7)
+    rng = np.random.RandomState(77)
+    q, ql, t, tl = (a.to(dev) for a in _ext_pairs(rng, 300, 700, 650))
+    gap = {"gapo2": 24, "gape2": 1} if mode == "extd" else {}
+    for W in (64, 255, 5000):
+        k = ext.extz_batch(q, ql, t, tl, W=W, zdrop=400, **gap)
+        p = ext.extz_batch_plain(q, ql, t, tl, W=W, zdrop=400, **gap)
+        for key in ext.KEYS:
+            assert torch.equal(k[key], p[key]), (W, key)

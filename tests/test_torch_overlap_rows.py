@@ -35,7 +35,8 @@ def test_rows_match_jax_host_multipart():
     queries = reads[:30]
     cfg_t, cfg_j = _cfgs(batch_size=60_000)   # several index parts
     want = joh.overlap_run(list(reads), queries, cfg_j)
-    assert toh.overlap_run(list(reads), queries, cfg_t) == want
+    assert toh.overlap_run(list(reads), queries, cfg_t,
+                           device="cpu") == want
     eng = DeviceOverlapEngine(cfg_t, queries, device="cpu")
     assert eng.run(list(reads)) == want
     assert eng.n_device_calls >= 2
@@ -50,6 +51,7 @@ def test_rows_match_jax_host_high_coverage_repeats():
     queries = reads[:25]
     cfg_t, cfg_j = _cfgs()
     want = joh.overlap_run(list(reads), queries, cfg_j)
-    assert toh.overlap_run(list(reads), queries, cfg_t) == want
+    assert toh.overlap_run(list(reads), queries, cfg_t,
+                           device="cpu") == want
     eng = DeviceOverlapEngine(cfg_t, queries, device="cpu")
     assert eng.run(list(reads)) == want

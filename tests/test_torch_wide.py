@@ -76,7 +76,8 @@ def test_wide_index_matches_jax_through_convert():
                                   n_idx_sizes=jdi.N_IDX_SIZES_SMALL,
                                   mid_occ_frac=0.05)
     carried = convert.index_from_arrays(jidx["ih"], jidx["irid"],
-                                        jidx["ips"], jidx["mid_occ"])
+                                        jidx["ips"], jidx["mid_occ"],
+                                        device="cpu")
     idx = di.build_device_index(part, k, w, device="cpu",
                                 ladder=di.TILE_LADDER_SMALL,
                                 n_idx_sizes=di.N_IDX_SIZES_SMALL,
@@ -88,7 +89,7 @@ def test_wide_index_matches_jax_through_convert():
     assert got[-1][0] > 1 << 31
     assert (np.diff(idx["ih"].numpy()) >= 0).all()
     assert int(idx["mid_occ"]) == int(carried["mid_occ"]) > 1
-    hidx = toh.build_index(part, k, w)
+    hidx = toh.build_index(part, k, w, device="cpu")
     assert got == sorted(zip(hidx.h.astype(np.int64).tolist(),
                              hidx.rid.tolist(), hidx.ps.tolist()))
 
@@ -136,7 +137,8 @@ def test_rows_match_jax_engine_and_host_spec(name):
     eng = DeviceOverlapEngine(cfg_t, queries, device="cpu")
     rows = eng.run(list(reads))
     assert rows == want
-    assert rows == toh.overlap_run(list(reads), queries, cfg_t)
+    assert rows == toh.overlap_run(list(reads), queries, cfg_t,
+                                   device="cpu")
     assert eng.n_device_calls >= r["calls"]
     assert eng.n_host_fallback == 0 and eng.n_host_only_parts == 0
     assert sum(row.split("\t")[3] != "0" for row in rows) > r["nq"] // 2
