@@ -11,10 +11,11 @@ prints the final result line):
   2. build the five kernels (B1 sketch, B2 chain fill, B3 peak,
      B4 min-rank, B5 extension, with its one-warp body for W <= 63 and
      its block-per-pair body for wider bands) from
-     longqc_tpu_torch/csrc, and the
-     port's FASTA/FASTQ reader (csrc/fastx_native.cpp, g++ -O3); the
-     registers, stack frame and spills of every B1 instance (one more
-     `nvcc -Xptxas -v` of csrc/sketch.cu alone)
+     longqc_tpu_torch/csrc, the port's FASTA/FASTQ reader
+     (csrc/fastx_native.cpp, g++ -O3) and its sdust recursion
+     (csrc/sdust_native.cpp); the registers, stack frame and spills of
+     every B1 instance (one more `nvcc -Xptxas -v` of csrc/sketch.cu
+     alone)
   3. B1-B4 against their plain PyTorch versions on the card, at
      production shapes, with exact equality (tolerance 0: all outputs
      are integers): B1 on 256 x 8192 and 32 x 65536 tiles of reads with
@@ -58,7 +59,8 @@ prints the final result line):
      exact; 16 short pairs against the full-DP host reference
   7. the HPC spike-in-control filter run through cli.main
      (mmcov -H -k 15 -w 10 -c 1 -l 0 --filter) against the Sequel
-     control reference in the repository: 5,000 queries of 1-8 kbp,
+     control reference of the port (longqc_tpu_torch/refs/): 5,000
+     queries of 1-8 kbp,
      100 of them from the (unrolled) control; the reader (native, else
      fail), B2-B4 launch counts (B3 / B4 by anchor rung), host-fixed
      rows (<= 5%), the filter marking every control-derived query and
@@ -79,14 +81,34 @@ prints the final result line):
      hashes equal to the tiles' chunks', mid_occ the kth count of
      torch.unique_consecutive over ih; its peak device memory and its
      seconds (host packing, B1 plus chunks, the merge) printed
+ 10. the port's sampleqc through cli.main on the card (default -n 5000;
+     with --no-report, and saying so, where matplotlib or jinja2 is not
+     installed, so the figures and the HTML are not drawn there):
+     10a. ont-ligation on phase 5's 20,000 target reads written as one
+     FASTQ, the preset's 5' adapter planted on 2,000 of them;
+     10b. pb-sequel on phase 7's 5,000 queries (100 from the control),
+     the spike-in filter run against the port's Sequel control.
+     Each: rc 0; Num_of_reads and Yield; B1-B4 launched; the reader and
+     the sdust recursion native; host-fixed rows <= 5%; one mask-table
+     row per read, 256 random ones equal to the Python sdust recursion
+     plus meanQ and nQ7 recomputed on the host; one 9-column coverage
+     row per sampled read, 32 random ones equal to the host spec; the 8
+     figures and the HTML unless not drawn; the stage seconds, the
+     overlap's phase_s, host-fixed rows and peak device memory printed.
+     10a: the 5' adapter statistics (and the 3' ones, when they pass
+     the identity threshold) equal a cut_adapter run with CPU tensors on
+     the same reads; the mask stage and the adapter DP run once more,
+     each alone on the card and timed, the mask rows equal to the run's.
+     10b: every control-derived sampled read is marked in the spike-in
+     table
 Kernel launch counts are reset just before each path (phase 4's three
-runs, phases 5, 6, 7, 8, 9) and read just after it. Each kernel's bound
-is the larger of its bytes (each input read once, each output written
-once) over 3.35 TB/s and its integer operations (counted from this
-run's data) over 67 T/s, the card's 32-bit rate outside the tensor
-cores. The line before the last
-but one is {"kernels": [...]}, the line before the last the card's
-name and power limit, the last line {"ok": true, "device": {...}}.
+runs, phases 5, 6, 7, 8, 9, 10a, 10b) and read just after it. Each
+kernel's bound is the larger of its bytes (each input read once, each
+output written once) over 3.35 TB/s and its integer operations
+(counted from this run's data) over 67 T/s, the card's 32-bit rate
+outside the tensor cores. The line before the last but one is
+{"kernels": [...]}, the line before the last the card's name and power
+limit, the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -685,7 +707,8 @@ def kernel_device_ms(argv, kernels):
 
 def realistic_mmcov(dev, workdir, run):
     """One all-vs-sample run (ONT_RUN or HIFI_RUN) through cli.main.
-    Returns (launches, device ms per kernel, B3 / B4 rungs and bound)."""
+    Returns (launches, device ms per kernel, B3 / B4 rungs and bound, the
+    target reads)."""
     import numpy as np
     import torch
     from util_synth import make_genome_fast, sample_reads_fast
@@ -798,7 +821,7 @@ def realistic_mmcov(dev, workdir, run):
     log("%s device time per kernel (torch.profiler, one more run, "
         "%.1f s): %s" % (phase, time.time() - t, json.dumps(
             {key: round(v, 3) for key, v in sorted(dev_ms.items())})))
-    return launches, dev_ms, (rungs, path_bound)
+    return launches, dev_ms, (rungs, path_bound), targets
 
 
 def range_rerun(dev, cfg, targets, queries, rows, stats,
@@ -1004,7 +1027,7 @@ def check_extend(dev, zdrop=400):
 # phase 7: the HPC spike-in-control filter run
 
 N_CONTROL = 100         # control-derived queries of the filter run (2%)
-CONTROL = "longqc_tpu/refs/Sequel_control_reference.fasta"
+CONTROL = "longqc_tpu_torch/refs/Sequel_control_reference.fasta"
 
 
 def hpc_filter_run(dev, workdir):
@@ -1108,7 +1131,7 @@ def hpc_filter_run(dev, workdir):
                              % (len(bad), len(pick), bad[0]))
     log("%d sampled HPC rows (%d control-derived) equal the host spec "
         "(host spec %.1f s)" % (len(pick), N_CONTROL, time.time() - t))
-    return launches, (rungs, path_bound)
+    return launches, (rungs, path_bound), queries
 
 
 # ---------------------------------------------------------------------------
@@ -1306,6 +1329,250 @@ def big_part_run(dev, workdir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the port's sampleqc through cli.main
+
+N_ADAPTER = 2000        # phase 10a's reads with the 5' adapter planted
+N_SAMPLED_ROWS = 32     # coverage rows held against the host spec
+N_MASK_ROWS = 256       # mask-table rows recomputed on the host
+
+
+def read_fastq(path):
+    from longqc_tpu_torch.io.fastx import iter_fastx
+    return [[n, s, q] for n, s, q in iter_fastx(path)]
+
+
+def host_mask_row(read):
+    """The sdust table's row of one read, recomputed on the host: the
+    Python sdust recursion, meanQ as the C loop sums it, nQ7."""
+    from longqc_tpu_torch.ops.quality import mean_q_host
+    from longqc_tpu_torch.ops.sdust import sdust_masked_length
+    name, seq, qual = read
+    ml = sdust_masked_length(seq)
+    nq7 = sum(1 for c in qual if ord(c) - 33 > 7)
+    return "%s\t%d\t%d\t%.3f\t%.3f\t%d" % (
+        name, ml, len(seq), ml / len(seq) if seq else 0.0,
+        mean_q_host(qual), nq7)
+
+
+def sampleqc_run(dev, workdir, tag, reads, preset, missing):
+    """`sampleqc -x preset` on `reads` through cli.main on the card, and
+    the checks every phase-10 run shares. Returns (launches, the output
+    directory, the QC JSON, the stats, the sampled reads)."""
+    import torch
+    from longqc_tpu_torch import cli
+    from longqc_tpu_torch import config as C
+    from longqc_tpu_torch.engine import overlap_host as oh
+    from longqc_tpu_torch.ops import _ext
+
+    phase = "phase %s" % tag
+    fq = os.path.join(workdir, "sampleqc_%s.fq" % tag)
+    out = os.path.join(workdir, "sampleqc_%s" % tag)
+    stats_path = os.path.join(workdir, "sampleqc_%s.json" % tag)
+    write_fastq(fq, reads)
+    argv = ["sampleqc", "-x", preset, "-o", out, "--device", str(dev),
+            "--stats", stats_path] + (["--no-report"] if missing else [])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launches()
+    t = time.time()
+    rc = cli.main(argv + [fq])
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = dict(_ext.LAUNCHES)
+    peak_mem = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise AssertionError("%s: sampleqc returned %d" % (phase, rc))
+    with open(stats_path) as f:
+        stats = json.load(f)
+    with open(os.path.join(out, "QC_vals_longQC_sampleqc.json")) as f:
+        qc = json.load(f)
+    ov = stats["overlap"]
+    log("sampleqc -x %s -o %s --device %s --stats %s%s %s" % (
+        preset, os.path.basename(out), dev, os.path.basename(stats_path),
+        " --no-report" if missing else "", os.path.basename(fq)))
+    log("%s sampleqc wall %.2f s; stage_s %s" % (phase, wall, json.dumps(
+        {k: round(v, 3) for k, v in stats["stage_s"].items()})))
+    log("%s overlap phase_s %s; step calls %d, retry steps %d, host-fixed "
+        "rows %d, host-only parts %d" % (
+            phase, json.dumps({k: round(v, 3)
+                               for k, v in ov["phase_s"].items()}),
+            ov["device_calls"], ov["retry_steps"], ov["host_fixed_rows"],
+            ov["host_only_parts"]))
+    if "spike_in" in stats:
+        sp = stats["spike_in"]
+        log("%s spike-in run phase_s %s; host-fixed rows %d" % (
+            phase, json.dumps({k: round(v, 3)
+                               for k, v in sp["phase_s"].items()}),
+            sp["host_fixed_rows"]))
+    log("%s kernel launches %s; max_memory_allocated %d bytes (%.2f GB); "
+        "reader %s, sdust recursion %s" % (
+            phase, launches, peak_mem, peak_mem / 1e9,
+            stats["reader"]["name"], stats["sdust"]["name"]))
+    log("%s QC JSON: %s" % (phase, json.dumps(qc)))
+    for key in ("reader", "sdust"):
+        if stats[key]["name"] != "native":
+            raise AssertionError("%s: the %s was not the native one (%s)"
+                                 % (phase, key, stats[key]["error"]))
+    for name in ("sketch", "chain", "peak", "minrank"):
+        if not launches.get(name):
+            raise AssertionError("%s: kernel %s was not launched by the "
+                                 "sampleqc run" % (phase, name))
+    if ov["host_fixed_rows"] > 0.05 * N_QUERIES:
+        raise AssertionError("%s: host-fixed rows %d exceed 5%%"
+                             % (phase, ov["host_fixed_rows"]))
+    n_bp = sum(len(r[1]) for r in reads)
+    if qc["Num_of_reads"] != len(reads) or qc["Yield"] != n_bp:
+        raise AssertionError("%s: Num_of_reads %d / Yield %d, want %d / %d"
+                             % (phase, qc["Num_of_reads"], qc["Yield"],
+                                len(reads), n_bp))
+
+    # the mask table: one row per input read; sampled rows recomputed
+    with open(os.path.join(out, "analysis", "longqc_sdust.txt")) as f:
+        mask_rows = f.read().splitlines()
+    if len(mask_rows) != len(reads):
+        raise AssertionError("%s: %d mask rows for %d reads"
+                             % (phase, len(mask_rows), len(reads)))
+    t = time.time()
+    pick = random.Random(5).sample(range(len(reads)), N_MASK_ROWS)
+    bad = [i for i in pick if mask_rows[i] != host_mask_row(reads[i])]
+    if bad:
+        raise AssertionError("%s: %d of %d mask rows differ from the host "
+                             "(first: read %d: %r vs %r)" % (
+                                 phase, len(bad), N_MASK_ROWS, bad[0],
+                                 mask_rows[bad[0]],
+                                 host_mask_row(reads[bad[0]])))
+    masked = sum(1 for r in mask_rows if r.split("\t")[1] != "0")
+    log("%s mask table: %d rows, %d with masked bases; %d sampled rows "
+        "equal the host recomputation (%.1f s)" % (
+            phase, len(mask_rows), masked, N_MASK_ROWS, time.time() - t))
+
+    # the coverage table: a 9-column row per sampled read, in the
+    # subsample's order; sampled rows against the host spec
+    sampled = read_fastq(os.path.join(out, "analysis", "subsample.fastq"))
+    with open(os.path.join(out, "analysis", "minimap2",
+                           "coverage_out.txt")) as f:
+        rows = f.read().splitlines()
+    if len(rows) != len(sampled) or \
+            any(len(r.split("\t")) != 9 for r in rows) or \
+            [r.split("\t")[0] for r in rows] != [r[0] for r in sampled]:
+        raise AssertionError("%s: the coverage table must hold one 9-column "
+                             "row per sampled read (%d rows, %d sampled)"
+                             % (phase, len(rows), len(sampled)))
+    pick = sorted(random.Random(7).sample(range(len(sampled)),
+                                          N_SAMPLED_ROWS))
+    cfg = C.overlap_config_for_sample(C.PRESETS[preset])
+    t = time.time()
+    want = oh.overlap_run(iter(reads), [sampled[i] for i in pick], cfg,
+                          device=dev)
+    bad = [i for i, r in zip(pick, want) if rows[i] != r]
+    if bad:
+        raise AssertionError("%s: %d of %d sampled coverage rows differ "
+                             "from the host spec (first: %d)"
+                             % (phase, len(bad), N_SAMPLED_ROWS, bad[0]))
+    log("%s coverage table: %d rows; %d sampled rows equal the host spec "
+        "(%.1f s)" % (phase, len(rows), N_SAMPLED_ROWS, time.time() - t))
+
+    figs = sorted(os.listdir(os.path.join(out, "figs")))
+    html = os.path.exists(os.path.join(out, "web_summary.html"))
+    if missing:
+        log("%s: %s missing on this machine: the 8 figures and the HTML "
+            "report were not drawn (--no-report); %d figures, HTML %s"
+            % (phase, " and ".join(missing), len(figs), html))
+        if figs or html:
+            raise AssertionError("%s: --no-report drew a report" % phase)
+    elif len(figs) != 8 or not html:
+        raise AssertionError("%s: %d figures, HTML %s" % (phase, len(figs),
+                                                          html))
+    return launches, out, qc, stats, sampled
+
+
+def sampleqc_ont(dev, workdir, targets, missing):
+    """Phase 10a: ont-ligation sampleqc on phase 5's target reads, the
+    5' adapter planted on N_ADAPTER of them; the adapter statistics
+    against cut_adapter with CPU tensors on the same reads; then the
+    mask stage and the adapter DP once more, each alone on the card (in
+    the run the mask stage shares the interpreter with the adapter
+    search), the mask rows against the run's table."""
+    import numpy as np
+    import torch
+    from longqc_tpu_torch import config as C
+    from longqc_tpu_torch.engine.masking import mask_table_rows
+    from longqc_tpu_torch.ops.adapter import adapter_dists, cut_adapter
+
+    preset = C.PRESETS["ont-ligation"]
+    step = len(targets) // N_ADAPTER
+    reads = [[n, preset.adp5 + s, "5" * len(preset.adp5) + q]
+             if i % step == 0 else [n, s, q]
+             for i, (n, s, q) in enumerate(targets)]
+    launches, out, qc, stats, _ = sampleqc_run(dev, workdir, "10a", reads,
+                                               "ont-ligation", missing)
+    t = time.time()
+    t5, t3 = cut_adapter([list(r) for r in reads], adp_t=preset.adp5,
+                         adp_b=preset.adp3,
+                         th=C.ADAPTER_IDENTITY_THRESHOLD,
+                         length=C.ADAPTER_SEARCH_LENGTH, device="cpu")
+    got5 = qc.get("Stats_for_adapter5", {})
+    got3 = qc.get("Stats_for_adapter3", {})
+    want5 = {"Num_of_trimmed_reads_5": t5[1], "Max_identity_adp5": t5[0],
+             "Average_position_from_5_end": float(np.mean(t5[2]))}
+    log("phase 10a adapters: 5' %s, 3' %s; cut_adapter on CPU tensors: "
+        "5' %s, 3' trimmed %d, max identity %.4f (%.1f s)" % (
+            json.dumps(got5), json.dumps(got3), json.dumps(want5), t3[1],
+            t3[0], time.time() - t))
+    if got5 != want5 or t5[1] < N_ADAPTER:
+        raise AssertionError("phase 10a: the 5' adapter statistics differ "
+                             "from cut_adapter's on CPU tensors")
+    if t3[0] >= C.ADAPTER_IDENTITY_THRESHOLD and (
+            got3.get("Num_of_trimmed_reads_3") != t3[1]
+            or got3.get("Max_identity_adp3") != t3[0]):
+        raise AssertionError("phase 10a: the 3' adapter statistics differ "
+                             "from cut_adapter's on CPU tensors")
+
+    torch.cuda.synchronize()
+    t = time.time()
+    rows = mask_table_rows(reads, device=dev)
+    torch.cuda.synchronize()
+    t_mask = time.time() - t
+    t = time.time()
+    for adp, where in ((preset.adp5, "head"), (preset.adp3, "tail")):
+        adapter_dists(reads, adp, where, C.ADAPTER_SEARCH_LENGTH,
+                      device=dev)
+    t_dp = time.time() - t
+    st = stats["stage_s"]
+    log("phase 10a stages alone on the card: mask table %.2f s (%.2f s in "
+        "the run, beside the adapter search), adapter DP at both ends %.2f "
+        "s (the adapter search %.2f s in the run)" % (
+            t_mask, st["mask"], t_dp, st["adapter"]))
+    with open(os.path.join(out, "analysis", "longqc_sdust.txt")) as f:
+        if f.read().splitlines() != rows:
+            raise AssertionError("phase 10a: the mask stage alone gives "
+                                 "other rows than the run")
+    return launches
+
+
+def sampleqc_pb(dev, workdir, queries, missing):
+    """Phase 10b: pb-sequel sampleqc on phase 7's queries (100 from the
+    Sequel control of the port's refs/): every control-derived sampled
+    read is marked by the spike-in filter run."""
+    launches, out, qc, _, sampled = sampleqc_run(
+        dev, workdir, "10b", queries, "pb-sequel", missing)
+    with open(os.path.join(out, "analysis", "minimap2",
+                           "spiked_in_control.txt")) as f:
+        rows = [r.split("\t") for r in f.read().splitlines()]
+    marked = {r[0] for r in rows if float(r[5]) >= 0.5}
+    ctl = {r[0] for r in sampled if r[0].startswith("control")}
+    log("phase 10b spike-in table: %d rows; %d marked, %d of the %d "
+        "control-derived sampled reads, %d others; control fraction %s"
+        % (len(rows), len(marked), len(marked & ctl), len(ctl),
+           len(marked - ctl), qc["Coverage_stats"].get(
+               "Estimated spiked-in control read fraction")))
+    if len(rows) != len(sampled) or not ctl or not ctl <= marked:
+        raise AssertionError("phase 10b: every control-derived sampled "
+                             "read must be marked by the filter run")
+    return launches
+
+
 def main():
     t_all = time.time()
     if not os.path.isdir(os.path.join(HERE, "longqc_tpu_torch")):
@@ -1349,6 +1616,12 @@ def main():
                              "%s" % native.BUILD["error"])
     log("built the reader: %s (%.2f s)" % (native.BUILD["cmd"],
                                           native.BUILD["build_s"]))
+    from longqc_tpu_torch.ops import sdust
+    if sdust.sdust_impl() != "native":
+        raise AssertionError("the port's sdust recursion did not build: %s"
+                             % sdust.NATIVE_BUILD["error"])
+    log("built the sdust recursion: %s (%.2f s)" % (
+        sdust.NATIVE_BUILD["cmd"], sdust.NATIVE_BUILD["build_s"]))
     t = time.time()
     resources = sketch_resources()
     log("B1 resources read in %.1f s" % (time.time() - t))
@@ -1371,7 +1644,8 @@ def main():
     workdir = tempfile.mkdtemp(prefix="longqc_smoke_")
     try:
         t = time.time()
-        launches, dev_ms, rungs5 = realistic_mmcov(dev, workdir, ONT_RUN)
+        launches, dev_ms, rungs5, targets5 = realistic_mmcov(dev, workdir,
+                                                             ONT_RUN)
         log("phase 5 %.1f s" % (time.time() - t))
         t = time.time()
         ext_res, ext_launches = check_extend(dev)
@@ -1379,14 +1653,30 @@ def main():
         launches.update(ext_launches)
         log("phase 6 %.1f s" % (time.time() - t))
         t = time.time()
-        hpc_launches, rungs7 = hpc_filter_run(dev, workdir)
+        hpc_launches, rungs7, queries7 = hpc_filter_run(dev, workdir)
         log("phase 7 %.1f s" % (time.time() - t))
         t = time.time()
-        launches8, dev_ms8, rungs8 = realistic_mmcov(dev, workdir, HIFI_RUN)
+        launches8, dev_ms8, rungs8, _ = realistic_mmcov(dev, workdir,
+                                                        HIFI_RUN)
         log("phase 8 %.1f s" % (time.time() - t))
         t = time.time()
         launches9 = big_part_run(dev, workdir)
         log("phase 9 %.1f s" % (time.time() - t))
+        # phase 10: the port's sampleqc on phase 5's and phase 7's reads
+        from longqc_tpu_torch.engine.pipeline import \
+            missing_report_modules
+        missing = missing_report_modules()
+        log("phase 10: the report stage's modules %s" % (
+            "are all installed" if not missing else
+            "missing here: %s (figures and HTML not drawn)"
+            % ", ".join(missing)))
+        t = time.time()
+        launches10a = sampleqc_ont(dev, workdir, targets5, missing)
+        del targets5
+        log("phase 10a %.1f s" % (time.time() - t))
+        t = time.time()
+        launches10b = sampleqc_pb(dev, workdir, queries7, missing)
+        log("phase 10b %.1f s" % (time.time() - t))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1419,6 +1709,10 @@ def main():
             entry["device_ms_phase8"] = dev_ms8[name]
         if name in BIG_RUN["kernels"]:
             entry["launches_phase9"] = launches9[name]
+        for phase, l10 in (("phase10a", launches10a),
+                           ("phase10b", launches10b)):
+            if name in l10:
+                entry["launches_" + phase] = l10[name]
         if name in HPC_KERNELS:
             entry["launches_hpc_filter"] = hpc_launches[name]
         for phase, (rungs, path_bound) in (("phase5", rungs5),

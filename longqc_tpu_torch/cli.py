@@ -1,12 +1,14 @@
 """Command-line interface: `python -m longqc_tpu_torch <subcommand>`.
 
-Ported so far: `mmcov`, the overlap engine's debug surface (the
-minimap2-coverage binary CLI, minimap2-coverage.c:37-197), on its
-default path (any k <= 28, so also the pb-hifi fast preset's wide
-hashes at k = 19, and any -w up to 255) and with -H (HPC sketch,
-k <= 15: the spike-in-control filter run). `mmcov -z` and `-d`, and the
-`sampleqc`, `runqc` and `help` subcommands of the JAX package are not
-ported yet.
+Ported so far: `sampleqc` (reference-free sample QC, with the JAX
+package's flags; `-d` is not ported), `help`, and `mmcov`, the overlap
+engine's debug surface (the minimap2-coverage binary CLI,
+minimap2-coverage.c:37-197), on its default path (any k <= 28, so also
+the pb-hifi fast preset's wide hashes at k = 19, and any -w up to 255)
+and with -H (HPC sketch, k <= 15: the spike-in-control filter run).
+`mmcov -z` and `-d`, `sampleqc -d` and the `runqc` subcommand are not
+ported yet. Every subcommand runs on the card unless `--device cpu` is
+given.
 """
 
 import argparse
@@ -14,8 +16,34 @@ import json
 import sys
 
 from longqc_tpu_torch._version import __version__
+from longqc_tpu_torch.config import PRESETS, DEFAULT_N_SAMPLE
 
-NOT_PORTED = ("sampleqc", "runqc", "help")
+NOT_PORTED = ("runqc",)
+
+
+def command_sample(args):
+    from longqc_tpu_torch.engine.pipeline import run_sampleqc
+
+    if args.db:
+        raise SystemExit("sampleqc -d: not yet ported")
+    stats = {}
+    run_sampleqc(
+        args.input, args.out, args.preset,
+        nsample=args.nsample, transcript=bool(args.transcript),
+        suffix=args.suf, trim_out=args.trim, adp5=args.adp5,
+        adp3=args.adp3, fast=bool(args.fast), mem=args.mem,
+        index_size=args.inds, short=bool(args.short), ncpu=args.ncpu,
+        force_pb=args.pb, force_sequel=args.sequel, force_ont=args.ont,
+        device=args.device, report=not args.no_report, stats=stats)
+    if args.stats:
+        with open(args.stats, "w") as f:
+            json.dump(stats, f, indent=1)
+
+
+def command_help(args):
+    # the reference's `help <command>` subcommand (longQC.py:952-954):
+    # print the named subcommand's help
+    build_parser().parse_args([args.command, "--help"])
 
 
 def command_mmcov(args):
@@ -64,6 +92,49 @@ def build_parser():
                         version="%(prog)s " + __version__)
     sub = parser.add_subparsers()
 
+    p_s = sub.add_parser("sampleqc", help="reference-free sample QC")
+    p_s.add_argument("input", help="input [fasta, fastq, pbbam or fast5 dir]")
+    p_s.add_argument("-o", "--output", dest="out", required=True)
+    p_s.add_argument("-x", "--preset", choices=sorted(PRESETS),
+                     required=True)
+    p_s.add_argument("-t", "--transcript", dest="transcript",
+                     action="store_true", default=None)
+    p_s.add_argument("-n", "--n_sample", dest="nsample", type=int,
+                     default=DEFAULT_N_SAMPLE)
+    p_s.add_argument("-s", "--sample_name", dest="suf", default=None)
+    p_s.add_argument("-c", "--trim_output", dest="trim", default=None)
+    p_s.add_argument("--adapter_5", dest="adp5", default=None)
+    p_s.add_argument("--adapter_3", dest="adp3", default=None)
+    p_s.add_argument("-f", "--fast", dest="fast", action="store_true",
+                     default=None)
+    p_s.add_argument("-m", "--mem", dest="mem", type=float, default=0.5)
+    p_s.add_argument("-i", "--index", dest="inds", default="4G")
+    p_s.add_argument("-b", "--short", dest="short", action="store_true",
+                     default=None)
+    p_s.add_argument("-p", "--ncpu", dest="ncpu", type=int, default=4,
+                     help="host-thread budget (advisory: stages run as "
+                          "in-process device programs here)")
+    p_s.add_argument("-d", "--db", dest="db", action="store_true",
+                     default=False, help="index prefetch (not yet ported)")
+    # hidden expert flags (longQC.py:942-947)
+    p_s.add_argument("--pb", help=argparse.SUPPRESS, dest="pb",
+                     action="store_true", default=None)
+    p_s.add_argument("--sequel", help=argparse.SUPPRESS, dest="sequel",
+                     action="store_true", default=None)
+    p_s.add_argument("--ont", help=argparse.SUPPRESS, dest="ont",
+                     action="store_true", default=None)
+    p_s.add_argument("--no-report", dest="no_report", action="store_true",
+                     default=False,
+                     help="stop after the QC JSON: no figures, no HTML "
+                          "(they need matplotlib and jinja2)")
+    p_s.add_argument("--stats", default=None,
+                     help="write each stage's seconds and the overlap "
+                          "engine's run counters (JSON) here")
+    p_s.add_argument("--device", default="cuda",
+                     help="torch device of every stage (default cuda; "
+                          "raises when no GPU is present)")
+    p_s.set_defaults(handler=command_sample)
+
     p_m = sub.add_parser("mmcov",
                          help="overlap-coverage engine (debug surface)")
     p_m.add_argument("target")
@@ -96,6 +167,10 @@ def build_parser():
 
     for name in NOT_PORTED:
         sub.add_parser(name, help="not yet ported")
+
+    p_h = sub.add_parser("help", help="see `help -h`")
+    p_h.add_argument("command")
+    p_h.set_defaults(handler=command_help)
     return parser
 
 

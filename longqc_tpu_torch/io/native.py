@@ -1,9 +1,11 @@
-"""ctypes bindings for the port's native FASTA/FASTQ reader.
+"""ctypes bindings for the port's native host code: the FASTA/FASTQ
+reader and (ops/sdust) the sdust recursion.
 
 `_load()` compiles longqc_tpu_torch/csrc/fastx_native.cpp with g++ into
 build/fastx/ under the repository root on first use (the library's name
 carries a digest of the source, the compiler and the flags, so a
-changed source or flag builds anew) and loads it. The flags are fixed
+changed source or flag builds anew) and loads it; `load_library` does
+the same for another source (csrc/sdust_native.cpp). The flags are fixed
 here (BUILD_FLAGS: -O3, nothing read from CXXFLAGS or other
 environment variables). When the build or the load fails, the failure
 is logged as a warning with the compiler's message, `BUILD["error"]`
@@ -28,7 +30,8 @@ logger = getLogger(__name__)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "fastx_native.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "fastx")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build")
+BUILD_DIR = os.path.join(BUILD_ROOT, "fastx")
 CXX = "g++"
 BUILD_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall"]
 LIBS = ["-lz"]
@@ -40,29 +43,28 @@ _lib = None
 _tried = False
 
 
-def _lib_path():
+def _lib_path(source, build_dir, stem, libs):
     h = hashlib.sha1()
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
-    h.update(" ".join([CXX] + BUILD_FLAGS + LIBS).encode())
-    return os.path.join(BUILD_DIR,
-                        "libfastx_native-%s.so" % h.hexdigest()[:16])
+    h.update(" ".join([CXX] + BUILD_FLAGS + libs).encode())
+    return os.path.join(build_dir, "%s-%s.so" % (stem, h.hexdigest()[:16]))
 
 
-def _build(so):
-    """Compile SOURCE into `so` (written to a temporary name first, so
+def _build(so, source, libs, record):
+    """Compile `source` into `so` (written to a temporary name first, so
     processes building it at once never load a half-written library)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(so), exist_ok=True)
     tmp = "%s.%d.tmp" % (so, os.getpid())
-    cmd = [CXX] + BUILD_FLAGS + ["-o", tmp, SOURCE] + LIBS
-    BUILD["cmd"] = " ".join(cmd)
+    cmd = [CXX] + BUILD_FLAGS + ["-o", tmp, source] + libs
+    record["cmd"] = " ".join(cmd)
     t0 = time.time()
     try:
         out = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=300)
     except (OSError, subprocess.SubprocessError) as e:
         raise RuntimeError("%s: %s" % (CXX, e)) from e
-    BUILD["build_s"] = time.time() - t0
+    record["build_s"] = time.time() - t0
     if out.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -71,21 +73,31 @@ def _build(so):
     os.replace(tmp, so)
 
 
+def load_library(source, build_dir, stem, record, libs=(), what=None):
+    """Build (once) and load a native source of csrc/ into build_dir: the
+    CDLL, or None when the build or the load failed (the error is logged
+    as `what` unavailable and kept in record["error"])."""
+    try:
+        so = _lib_path(source, build_dir, stem, list(libs))
+        record["lib"] = so
+        if not os.path.exists(so):
+            _build(so, source, list(libs), record)
+        return ctypes.CDLL(so)
+    except (OSError, RuntimeError) as e:
+        record["error"] = str(e)
+        logger.warning("native %s unavailable: %s", what or stem, e)
+        return None
+
+
 def _load():
     global _lib, _tried
     if _tried:
         return _lib
     _tried = True
-    try:
-        so = _lib_path()
-        BUILD["lib"] = so
-        if not os.path.exists(so):
-            _build(so)
-        lib = ctypes.CDLL(so)
-    except (OSError, RuntimeError) as e:
-        BUILD["error"] = str(e)
-        logger.warning("native FASTA/FASTQ reader unavailable, parsing with "
-                       "the pure-Python lexer: %s", e)
+    lib = load_library(SOURCE, BUILD_DIR, "libfastx_native", BUILD, LIBS,
+                       what="FASTA/FASTQ reader (parsing with the "
+                            "pure-Python lexer)")
+    if lib is None:
         return None
     lib.lqf_open.restype = ctypes.c_void_p
     lib.lqf_open.argtypes = [ctypes.c_char_p]

@@ -70,12 +70,16 @@ def lib(verbose=False):
 
 def require_device(device):
     """torch.device for a run; a CUDA device that is not there raises
-    (nothing in the port drops to the CPU on its own)."""
+    (nothing in the port drops to the CPU on its own). A CUDA device
+    given without an index gets the caller's current one, so work handed
+    to another thread stays on it."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device %s requested but no CUDA device is "
                            "available (pass device='cpu' explicitly to "
                            "run the plain kernel versions)" % device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 

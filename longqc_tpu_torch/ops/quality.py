@@ -1,13 +1,24 @@
-"""Per-read mean quality (the host scalar of longqc_tpu/ops/quality).
+"""Quality-score statistics as batched torch ops (port of
+longqc_tpu/ops/quality).
 
 The reference's phred->error table q2p[] (lqutils.c:26-49; the literal
 values, which are not exactly round(10^(-q/10), 15), are the behavioral
-spec) and meanQ = -10*log10(mean error) (lqutils.c:51-58), evaluated
-with the C loop's sequential f64 sum. The batched device versions of
-the JAX module belong to the chunk-QC stages, which are not ported yet.
+spec) and its per-read metrics:
+  - meanQ   -10*log10(mean error)           (lqutils.c:51-58)
+  - nQx     #bases with phred > threshold   (lqutils.c:72-80; note the
+            strict '>' comparison)
+
+Batched over padded (N, L) phred tiles with length masking, on the
+tiles' device. The per-read phred histogram is counted with one
+scatter-add into (N * 127) bins, so no (N, L, 127) one-hot is built;
+meanQ's f64 contraction with q2p runs on the host, as in the JAX
+package, so its values are bit-identical to the JAX meanQ.
 """
 
 import numpy as np
+import torch
+
+N_PHRED = 127
 
 # fmt: off
 Q2P = np.array([
@@ -53,3 +64,50 @@ def mean_q_host(qual_str):
     # rounding to the C left-to-right loop, at C speed
     s = float(np.add.accumulate(Q2P[idx])[-1])
     return -10.0 * np.log10(s / len(idx))
+
+
+def _length_mask(lengths, lmax):
+    pos = torch.arange(lmax, dtype=torch.int32, device=lengths.device)
+    return pos[None, :] < lengths[:, None]
+
+
+def qual_hist_batch(quals, lengths):
+    """Per-read phred histogram (N, 127) int32 of padded (N, L) phred
+    tiles (tensors of one device); phred values are clamped to 0..126."""
+    n, lmax = quals.shape
+    mask = _length_mask(lengths, lmax)
+    q = quals.to(torch.int64).clamp_(0, N_PHRED - 1)
+    rows = torch.arange(n, dtype=torch.int64, device=quals.device)
+    # bins past the read's end go to one spare bin, dropped below
+    idx = torch.where(mask, rows[:, None] * N_PHRED + q, n * N_PHRED)
+    hist = torch.zeros(n * N_PHRED + 1, dtype=torch.int32,
+                       device=quals.device)
+    hist.scatter_add_(0, idx.reshape(-1),
+                      torch.ones(idx.numel(), dtype=torch.int32,
+                                 device=quals.device))
+    return hist[:-1].view(n, N_PHRED)
+
+
+def mean_q_from_hist(hist, lengths):
+    """Host finalization of numpy arrays: meanQ =
+    -10*log10(sum(count_q * q2p[q]) / len), in f64."""
+    hist = np.asarray(hist, dtype=np.float64)
+    s = hist @ Q2P
+    mean = s / np.maximum(np.asarray(lengths, dtype=np.float64), 1.0)
+    return -10.0 * np.log10(mean)
+
+
+def mean_q_batch(quals, lengths):
+    """Per-read meanQ: histogram on the tiles' device + host f64
+    finalization."""
+    return mean_q_from_hist(qual_hist_batch(quals, lengths).cpu().numpy(),
+                            lengths.cpu().numpy())
+
+
+def n_qx_batch(quals, lengths, threshold=7):
+    """Per-read count (int32) of bases with phred strictly greater than
+    threshold: the C code compares raw ascii, (int)qual[i] > threshold +
+    33 (lqutils.c:72-80)."""
+    mask = _length_mask(lengths, quals.shape[1])
+    gt = (quals.to(torch.int32) > threshold) & mask
+    return gt.sum(dim=1, dtype=torch.int32)

@@ -98,7 +98,8 @@ def test_mmcov_hpc_filter_matches_jax_package(tmp_path, capsys):
 def test_unported_surfaces(tmp_path):
     tf, qf = _dataset(tmp_path, n=20, nq=4)
     for argv in (["mmcov", "-z", "--device", "cpu", tf, qf],
-                 ["sampleqc", "-x", "ont-ligation", "-o", "out", tf],
+                 ["sampleqc", "-d", "-x", "ont-ligation", "-o", "out",
+                  "--device", "cpu", tf],
                  ["runqc", "minion", "dir"]):
         with pytest.raises(SystemExit) as e:
             main(argv)

@@ -1,11 +1,17 @@
 """The CUDA kernels against their plain versions on the card (marked
-`cuda`: they need a GPU and nvcc, and skip elsewhere). chip_smoke.py
-runs the same comparisons at production shapes."""
+`cuda`: they need a GPU and nvcc, and skip elsewhere), and sampleqc's
+run on the card against its run on the CPU. chip_smoke.py runs the same
+comparisons at production shapes."""
+
+import filecmp
+import json
+import os
 
 import numpy as np
 import pytest
 import torch
-import torch_util  # noqa: F401
+from torch_util import (QC_JSON, SAMPLEQC_TABLES, compare_qc_json,
+                        ont_sampleqc_reads, pb_sampleqc_reads)
 
 from longqc_tpu_torch.engine import device_index as di
 from longqc_tpu_torch.ops import extend as ext
@@ -226,3 +232,33 @@ def test_extend_wide_band_in_device_memory(dev, mode, monkeypatch):
         p = ext.extz_batch_plain(q, ql, t, tl, W=W, zdrop=400, **gap)
         for key in ext.KEYS:
             assert torch.equal(k[key], p[key]), (W, key)
+
+
+@pytest.mark.parametrize("preset", ["ont-ligation", "pb-sequel"])
+def test_sampleqc_card_run_equals_cpu_run(tmp_path, dev, preset):
+    """Every stage on the card (kernels B1-B4, the chunk-QC torch ops, the
+    fits) against the same run on the CPU: the tables byte-identical, the
+    QC JSON within the fits' tolerance."""
+    from longqc_tpu_torch.engine import pipeline
+    from util_synth import write_fastq_file
+
+    reads = (ont_sampleqc_reads() if preset == "ont-ligation"
+             else pb_sampleqc_reads())
+    fq = str(tmp_path / "in.fq")
+    write_fastq_file(fq, reads)
+    report = not pipeline.missing_report_modules()
+    outs = {}
+    for d in ("cpu", "cuda"):
+        outs[d] = str(tmp_path / d)
+        pipeline.run_sampleqc(fq, outs[d], preset, nsample=30,
+                              device=dev if d == "cuda" else d,
+                              report=report)
+    tables = SAMPLEQC_TABLES + (["analysis/minimap2/spiked_in_control.txt"]
+                                if preset == "pb-sequel" else [])
+    for table in tables:
+        assert filecmp.cmp(os.path.join(outs["cpu"], table),
+                           os.path.join(outs["cuda"], table), shallow=False)
+    with open(os.path.join(outs["cpu"], QC_JSON)) as f:
+        want = json.load(f)
+    with open(os.path.join(outs["cuda"], QC_JSON)) as f:
+        compare_qc_json(json.load(f), want)
