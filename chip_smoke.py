@@ -101,8 +101,35 @@ prints the final result line):
      each alone on the card and timed, the mask rows equal to the run's.
      10b: every control-derived sampled read is marked in the spike-in
      table
+ 11. `sampleqc -d -x pb-sequel` through cli.main on phase 10b's reads:
+     the checks of phase 10; one npz part per (k, w) spec; the coverage
+     and spike-in tables and the QC JSON equal 10b's; the part's arrays
+     (dtypes too) equal a fresh overlap_host.build_index on the card;
+     the prefetch thread's seconds and the join wait printed, and the
+     prefetch's seconds alone on the card
+ 12. on the first 2,000 of phase 5's targets and its first 200 queries,
+     at phase 5's settings, through cli.main: `mmcov -d` dump only (one
+     npz part, nothing printed), then the cached run (the host spec),
+     its rows equal to the device engine's; `mmcov -z` from the cache:
+     the rows unchanged, the [z] lines descending and summing to the
+     device engine's m_cnts; then `mmcov -H -k 17 -w 10 -c 1 -l 0
+     --filter` against the Sequel control on the 200 queries and 20 of
+     phase 7's control-derived reads: the device engine rejects HPC with
+     k > 15, so the batched chainer runs, B2 (and no other kernel)
+     launched, every row equal to the host spec's; seconds, B2 launches
+     and host-chained rows printed
+ 13. `runqc sequel` (20,000 ZMWs of 1-4 subreads split by adapters,
+     low-quality and control scraps; BAM records of 12 bp placeholder
+     sequences, the QC reading names and tags alone) and `runqc rs2`
+     (an sts.csv of 50,000 ZMWs and an sts.xml) through cli.main on run
+     folders written here (--no-report where matplotlib is missing):
+     Num_of_reads, Throughput, Longest_read, the productivity and the
+     Sequel control throughput equal what the writer planted; `runqc
+     minion` where h5py is installed, else one line saying it did not
+     run
 Kernel launch counts are reset just before each path (phase 4's three
-runs, phases 5, 6, 7, 8, 9, 10a, 10b) and read just after it. Each
+runs, phases 5, 6, 7, 8, 9, 10a, 10b, 11, phase 12's batched chainer)
+and read just after it. Each
 kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its integer operations
 (counted from this run's data) over 67 T/s, the card's 32-bit rate
@@ -146,15 +173,15 @@ BIG_RUN = dict(
 N_SAMPLED_HASHES = 4096
 
 B1 = ("longqc_tpu_torch/csrc/sketch.cu",
-      "longqc_tpu/ops/sketch_pallas.py:312")
+      "longqc_tpu/ops/sketch_pallas.py:285")
 SOURCES = {
     "sketch": B1, "sketch_u64": B1, "sketch_ring": B1, "sketch_ring_u64": B1,
     "chain": ("longqc_tpu_torch/csrc/chain.cu",
-              "longqc_tpu/ops/chain_pallas.py:293"),
+              "longqc_tpu/ops/chain_pallas.py:262"),
     "peak": ("longqc_tpu_torch/csrc/ringprop.cu",
-             "longqc_tpu/ops/ringprop.py:116"),
+             "longqc_tpu/ops/ringprop.py:34"),
     "minrank": ("longqc_tpu_torch/csrc/ringprop.cu",
-                "longqc_tpu/ops/ringprop.py:137"),
+                "longqc_tpu/ops/ringprop.py:34"),
     "extz": ("longqc_tpu_torch/csrc/extend.cu",
              "longqc_tpu/ops/extend_pallas.py:192"),
     "extd": ("longqc_tpu_torch/csrc/extend.cu",
@@ -1355,10 +1382,11 @@ def host_mask_row(read):
         mean_q_host(qual), nq7)
 
 
-def sampleqc_run(dev, workdir, tag, reads, preset, missing):
-    """`sampleqc -x preset` on `reads` through cli.main on the card, and
-    the checks every phase-10 run shares. Returns (launches, the output
-    directory, the QC JSON, the stats, the sampled reads)."""
+def sampleqc_run(dev, workdir, tag, reads, preset, missing, extra=()):
+    """`sampleqc -x preset` (plus the flags in extra) on `reads` through
+    cli.main on the card, and the checks every phase-10 run shares.
+    Returns (launches, the output directory, the QC JSON, the stats, the
+    sampled reads)."""
     import torch
     from longqc_tpu_torch import cli
     from longqc_tpu_torch import config as C
@@ -1371,7 +1399,8 @@ def sampleqc_run(dev, workdir, tag, reads, preset, missing):
     stats_path = os.path.join(workdir, "sampleqc_%s.json" % tag)
     write_fastq(fq, reads)
     argv = ["sampleqc", "-x", preset, "-o", out, "--device", str(dev),
-            "--stats", stats_path] + (["--no-report"] if missing else [])
+            "--stats", stats_path] + (["--no-report"] if missing else []) \
+        + list(extra)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _ext.reset_launches()
@@ -1388,9 +1417,10 @@ def sampleqc_run(dev, workdir, tag, reads, preset, missing):
     with open(os.path.join(out, "QC_vals_longQC_sampleqc.json")) as f:
         qc = json.load(f)
     ov = stats["overlap"]
-    log("sampleqc -x %s -o %s --device %s --stats %s%s %s" % (
+    log("sampleqc -x %s -o %s --device %s --stats %s%s%s %s" % (
         preset, os.path.basename(out), dev, os.path.basename(stats_path),
-        " --no-report" if missing else "", os.path.basename(fq)))
+        " --no-report" if missing else "", "".join(" " + a for a in extra),
+        os.path.basename(fq)))
     log("%s sampleqc wall %.2f s; stage_s %s" % (phase, wall, json.dumps(
         {k: round(v, 3) for k, v in stats["stage_s"].items()})))
     log("%s overlap phase_s %s; step calls %d, retry steps %d, host-fixed "
@@ -1573,6 +1603,441 @@ def sampleqc_pb(dev, workdir, queries, missing):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: sampleqc -d, the index prefetch beside the chunk-QC loop
+
+
+def qc_json_equal(got, want):
+    """Two QC JSON dicts: the same keys in the same order, integers and
+    strings equal, floats equal except those of the coverage fits
+    (Coverage_stats), within rel 1e-9 (the EM fits' summation order)."""
+    def walk(a, b, path):
+        if type(a) is not type(b):
+            return False
+        if isinstance(b, dict):
+            return list(a) == list(b) and all(
+                walk(a[k], b[k], path + "/" + k) for k in b)
+        if isinstance(b, list):
+            return len(a) == len(b) and all(
+                walk(x, y, path) for x, y in zip(a, b))
+        if isinstance(b, float) and path.startswith("/Coverage_stats"):
+            return abs(a - b) <= 1e-9 * abs(b)
+        return a == b
+    return walk(got, want, "")
+
+
+def sampleqc_db(dev, workdir, reads, missing):
+    """Phase 11: phase 10b's sampleqc once more with -d. Its tables and
+    QC JSON must equal 10b's, its one npz part per (k, w) spec a fresh
+    build_index on the card; then the prefetch alone on the card, timed.
+    Returns the launch counts of the run."""
+    import filecmp
+    import numpy as np
+    from longqc_tpu_torch import config as C
+    from longqc_tpu_torch.engine import overlap_host as oh
+    from longqc_tpu_torch.engine import pipeline
+
+    phase = "phase 11"
+    launches, out, qc, stats, _ = sampleqc_run(
+        dev, workdir, "11", reads, "pb-sequel", missing, extra=["-d"])
+    ref = os.path.join(workdir, "sampleqc_10b")
+    mm2 = os.path.join("analysis", "minimap2")
+    for table in (os.path.join(mm2, "coverage_out.txt"),
+                  os.path.join(mm2, "spiked_in_control.txt")):
+        if not filecmp.cmp(os.path.join(out, table),
+                           os.path.join(ref, table), shallow=False):
+            raise AssertionError("%s: %s differs from phase 10b's"
+                                 % (phase, table))
+    with open(os.path.join(ref, "QC_vals_longQC_sampleqc.json")) as f:
+        if not qc_json_equal(qc, json.load(f)):
+            raise AssertionError("%s: the QC JSON differs from phase 10b's"
+                                 % phase)
+    cfg = C.overlap_config_for_sample(C.PRESETS["pb-sequel"])
+    k, w = cfg.index.k, cfg.index.w
+    npz = sorted(f for f in os.listdir(os.path.join(out, mm2))
+                 if f.endswith(".npz"))
+    if npz != ["t_db_longqc_k%d_w%d.part0000.npz" % (k, w)]:
+        raise AssertionError("%s: npz parts %s, want one for (k, w) = "
+                             "(%d, %d)" % (phase, npz, k, w))
+    pf = stats["prefetch"]
+    t = time.time()
+    got = oh.MinimizerIndex.load(os.path.join(out, mm2, npz[0]))
+    want = oh.build_index(reads, k, w, device=dev)
+    for key in ("h", "rid", "ps", "seq_lens"):
+        a, b = getattr(got, key), getattr(want, key)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError("%s: the npz part's %s differs from a "
+                                 "fresh build_index" % (phase, key))
+    if got.names != want.names:
+        raise AssertionError("%s: the npz part's names differ" % phase)
+    t_check = time.time() - t
+    # the prefetch alone on the card: the same spec into a fresh prefix
+    fq = os.path.join(workdir, "sampleqc_11.fq")
+    alone = pipeline._IndexPrefetcher(
+        fq, [(k, w, os.path.join(workdir, "prefetch_alone"))],
+        cfg.index.batch_size, dev)
+    t = time.time()
+    alone.start()
+    alone.join()
+    t_alone = time.time() - t
+    log("%s: the tables and the QC JSON equal phase 10b's; npz parts %s "
+        "(%d entries) equal a fresh build_index on the card (%.1f s); "
+        "prefetch thread %.2f s beside the chunk-QC loop, join wait %.3f "
+        "s; the prefetch alone on the card %.2f s"
+        % (phase, npz, len(got.h), t_check, pf["thread_s"],
+           pf["join_wait_s"], t_alone))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: mmcov -d, mmcov -z and the batched chainer
+
+N_DB_TARGETS = 2000     # phase 5's targets of phase 12 (host spec runs)
+N_DB_QUERIES = 200
+N_CHAINER_CONTROL = 20  # phase 7's control-derived reads of the -k 17 run
+
+
+def run_cli(argv):
+    """cli.main(argv) -> (stdout, stderr, seconds); fails unless rc 0."""
+    import torch
+    from contextlib import redirect_stderr
+    from longqc_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    t = time.time()
+    with redirect_stdout(out), redirect_stderr(err):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError("%s returned %d" % (" ".join(argv[:2]), rc))
+    return out.getvalue(), err.getvalue(), time.time() - t
+
+
+def mmcov_db_z_chainer(dev, workdir, targets, queries7):
+    """Phase 12 on the first N_DB_TARGETS of phase 5's targets (its first
+    N_DB_QUERIES queries) at phase 5's settings: `mmcov -d` dump only,
+    then the cached run (the host spec), whose rows must equal the device
+    engine's; `mmcov -z` from the cache: the rows unchanged, the [z]
+    lines descending, summing to the device engine's m_cnts; then `mmcov
+    -H -k 17 -w 10 -c 1 -l 0 --filter` (the device engine rejects HPC
+    with k > 15) against the Sequel control on the queries plus
+    N_CHAINER_CONTROL of phase 7's control-derived reads: the batched
+    chainer with B2, every row equal to the host spec's. Returns the
+    launch counts of the batched-chainer run."""
+    import numpy as np
+    import torch
+    from longqc_tpu_torch.config import FltOpt, IndexOpt, MapOpt, \
+        OverlapConfig, parse_num
+    from longqc_tpu_torch.engine import overlap_host as oh
+    from longqc_tpu_torch.engine.device_overlap import DeviceOverlapEngine
+    from longqc_tpu_torch.io.fastx import iter_fastx
+    from longqc_tpu_torch.ops import _ext
+
+    phase = "phase 12"
+    tg, qs = targets[:N_DB_TARGETS], targets[:N_DB_QUERIES]
+    tpath = os.path.join(workdir, "db_targets.fq")
+    qpath = os.path.join(workdir, "db_queries.fq")
+    write_fastq(tpath, tg)
+    write_fastq(qpath, qs)
+    run = ONT_RUN
+    base = ["mmcov", "-k", str(run["k"]), "-w", str(run["w"]), "-p",
+            str(run["p"]), "-q", str(run["q"]), "-l", "0", "--device",
+            str(dev)]
+    prefix = os.path.join(workdir, "db12")
+    out, _, t_dump = run_cli(base + ["-d", prefix, tpath])
+    parts = sorted(f for f in os.listdir(workdir) if f.startswith("db12."))
+    if out or parts != ["db12.part0000.npz"]:
+        raise AssertionError("%s: the dump wrote %s and printed %d bytes"
+                             % (phase, parts, len(out)))
+    out, _, t_cached = run_cli(base + ["-d", prefix, tpath, qpath])
+    rows_cached = out.rstrip("\n").split("\n")
+    cfg = OverlapConfig(
+        index=IndexOpt(k=run["k"], w=run["w"], batch_size=parse_num("4G")),
+        map=MapOpt(min_score_med=run["p"], min_score_good=run["q"],
+                   min_chain_score=40),
+        flt=FltOpt(min_ovlp=0, min_coverage=3))
+    t = time.time()
+    eng = DeviceOverlapEngine(cfg, qs, device=dev)
+    rows_dev = eng.run(iter(tg))
+    torch.cuda.synchronize()
+    t_dev = time.time() - t
+    if rows_cached != rows_dev:
+        bad = [i for i, (a, b) in enumerate(zip(rows_cached, rows_dev))
+               if a != b]
+        raise AssertionError("%s: the cached host-spec run gives %d rows, "
+                             "%d differ from the device engine's (first: "
+                             "%s)" % (phase, len(rows_cached), len(bad),
+                                      bad[:1]))
+    # the device engine's m_cnts, summed over every query
+    m_sum = 0
+    for g in eng.groups:
+        mc, n_exp = g.m_cnts.cpu().numpy(), g.n_exp.cpu().numpy()
+        for r, qi in enumerate(g.qids):
+            if qi in eng.host_state:
+                m_sum += int(eng.host_state[qi].m_cnts.sum())
+            else:
+                m_sum += int(mc[r, :n_exp[r]].astype(np.int64).sum())
+    out, err, t_z = run_cli(base + ["-z", "-d", prefix, tpath, qpath])
+    counts = [int(ln.rsplit(" ", 1)[1]) for ln in err.splitlines()
+              if ln.startswith("[z] minimizer ")]
+    if out.rstrip("\n").split("\n") != rows_cached:
+        raise AssertionError("%s: -z changed the rows" % phase)
+    if counts != sorted(counts, reverse=True) or sum(counts) != m_sum \
+            or not m_sum:
+        raise AssertionError("%s: the [z] lines (%d, summing to %d) must "
+                             "be descending and sum to the queries' m_cnts "
+                             "(%d)" % (phase, len(counts), sum(counts),
+                                       m_sum))
+    covered = sum(1 for r in rows_cached if r.split("\t")[3] != "0")
+    log("%s: %d targets (%d bp), %d queries: mmcov -d dump %.2f s, cached "
+        "run (host spec) %.2f s, its %d rows (%d with reliable regions) "
+        "equal the device engine's (%.2f s, %d host-fixed); -z %.2f s: %d "
+        "[z] lines, descending, summing to %d, the queries' m_cnts; rows "
+        "unchanged" % (phase, len(tg), sum(len(r[1]) for r in tg), len(qs),
+                       t_dump, t_cached, len(rows_cached), covered, t_dev,
+                       eng.n_host_fallback, t_z, len(counts), m_sum))
+
+    # the batched chainer: -H with k > 15
+    ctl = [r for r in queries7 if r[0].startswith("control")]
+    qc = qs + ctl[:N_CHAINER_CONTROL]
+    cpath = os.path.join(workdir, "chainer_queries.fq")
+    write_fastq(cpath, qc)
+    stats_path = os.path.join(workdir, "chainer_stats.json")
+    ctl_path = os.path.join(HERE, CONTROL)
+    argv = ["mmcov", "-H", "-k", "17", "-w", "10", "-c", "1", "-l", "0",
+            "--filter", "--device", str(dev), "--stats", stats_path,
+            ctl_path, cpath]
+    _ext.reset_launches()
+    out, _, t_ch = run_cli(argv)
+    launches = dict(_ext.LAUNCHES)
+    rows = out.rstrip("\n").split("\n")
+    with open(stats_path) as f:
+        stats = json.load(f)
+    fcfg = OverlapConfig(
+        index=IndexOpt(k=17, w=10, is_hpc=True, batch_size=parse_num("4G")),
+        map=MapOpt(min_score_med=80, min_score_good=160,
+                   min_chain_score=40),
+        flt=FltOpt(min_ovlp=0, min_coverage=1), filter_mode=True)
+    control = [[n, s, q or ""] for n, s, q in iter_fastx(ctl_path)]
+    t = time.time()
+    want = oh.overlap_run(control, qc, fcfg, device=dev)
+    t_host = time.time() - t
+    marked = sum(1 for r in rows[len(qs):] if r.split("\t")[3] != "0")
+    log(" ".join(argv[:-3] + ["chainer_stats.json", CONTROL,
+                              "chainer_queries.fq"]))
+    log("%s batched chainer: %.2f s, engine %s, B2 launches %s, B2 calls "
+        "%d, device rows %d, host-chained rows %d; %d of %d control reads "
+        "marked; host spec %.2f s" % (
+            phase, t_ch, stats["engine"], launches, stats["b2_calls"],
+            stats["device_rows"], stats["host_fallback_rows"], marked,
+            len(qc) - len(qs), t_host))
+    if stats["engine"] != "batched_chainer" or set(launches) != {"chain"} \
+            or launches["chain"] != stats["b2_calls"] \
+            or not launches["chain"]:
+        raise AssertionError("%s: the -k 17 run must take the batched "
+                             "chainer and launch B2 (and nothing else)"
+                             % phase)
+    if rows != want:
+        bad = [i for i, (a, b) in enumerate(zip(rows, want)) if a != b]
+        raise AssertionError("%s: %d of %d batched-chainer rows differ from "
+                             "the host spec (first: %s)"
+                             % (phase, len(bad), len(want), bad[:1]))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: runqc on run folders written here
+
+N_SEQUEL_ZMW = 20000
+N_SEQUEL_CONTROL = 200
+N_RS_ROWS = 50000
+N_ONT_FILES = 200
+
+
+def bam_bytes(header, records):
+    """An unaligned BAM (one gzip member; BGZF is multi-member gzip) of
+    records (name, tags): each record's 12 bp sequence and its 0xFF
+    qualities packed with numpy. The platform QC reads names and tags
+    alone."""
+    import gzip
+    import struct
+    import numpy as np
+
+    seq = np.array([0x12, 0x48] * 6, np.uint8)[:6].tobytes()  # ACGTACG...
+    qual = b"\xff" * 12
+    ht = header.encode()
+    out = [b"BAM\x01", struct.pack("<i", len(ht)), ht, struct.pack("<i", 0)]
+    for name, tags in records:
+        nb = name.encode() + b"\x00"
+        data = struct.pack("<iiBBHHHiiii", -1, -1, len(nb), 0, 4680, 0, 4,
+                           12, -1, -1, 0) + nb + seq + qual + tags
+        out.append(struct.pack("<i", len(data)) + data)
+    return gzip.compress(b"".join(out), compresslevel=1)
+
+
+def write_sequel_run(d, rng):
+    """A Sequel run folder: N_SEQUEL_ZMW ZMWs of 1-4 subreads (0.5-15
+    kbp) split by 45 bp adapters, low-quality scraps before or after on
+    ~30 %, ~5 % with low-quality scraps alone; N_SEQUEL_CONTROL control
+    ZMWs; an sts.xml. -> the planted values."""
+    import struct
+    import numpy as np
+
+    tag = {c: b"szAN" + b"scA" + c.encode() for c in "AL"}
+    ctl_tag = b"szAC" + b"scAF"
+    sn = b"snBf" + struct.pack("<I4f", 4, 5.0, 6.0, 7.0, 8.0)
+    subs, scraps, hq = [], [], []
+    for z in range(N_SEQUEL_ZMW):
+        pos = 0
+        if rng.rand() < 0.3 or z % 20 == 0:
+            ln = int(rng.randint(50, 800))
+            scraps.append(("m1/%d/%d_%d" % (z, pos, pos + ln), tag["L"]))
+            pos += ln
+        if z % 20 == 0:
+            continue                      # low-quality scraps alone
+        start = pos
+        for i in range(int(rng.randint(1, 5))):
+            if i:
+                scraps.append(("m1/%d/%d_%d" % (z, pos, pos + 45), tag["A"]))
+                pos += 45
+            ln = int(rng.randint(500, 15000))
+            subs.append(("m1/%d/%d_%d" % (z, pos, pos + ln), sn))
+            pos += ln
+        hq.append(pos - start + 1)
+        if rng.rand() < 0.3:
+            ln = int(rng.randint(50, 800))
+            scraps.append(("m1/%d/%d_%d" % (z, pos, pos + ln), tag["L"]))
+    ctl = 0
+    for z in range(N_SEQUEL_ZMW, N_SEQUEL_ZMW + N_SEQUEL_CONTROL):
+        ln = int(rng.randint(1000, 4000))
+        scraps.append(("m1/%d/0_%d" % (z, ln), ctl_tag))
+        ctl += ln + 1
+    with open(os.path.join(d, "m1.subreads.bam"), "wb") as f:
+        f.write(bam_bytes("@RG\tID:a\tDS:READTYPE=SUBREAD;Ipd:CodecV1\n",
+                          subs))
+    with open(os.path.join(d, "m1.scraps.bam"), "wb") as f:
+        f.write(bam_bytes("@RG\tID:a\tDS:READTYPE=SCRAP;Ipd:CodecV1\n",
+                          scraps))
+    prod = [int(rng.randint(1000, 9000)) for _ in range(3)]
+    pipe = "http://pacificbiosciences.com/PacBioPipelineStats.xsd"
+    base = "http://pacificbiosciences.com/PacBioBaseDataModel.xsd"
+    with open(os.path.join(d, "m1.sts.xml"), "w") as f:
+        f.write('<?xml version="1.0"?>\n<PipeStats xmlns="%s" xmlns:b="%s">'
+                "<ProdDist><b:BinCounts>%s</b:BinCounts><b:BinLabels>"
+                "<b:BinLabel>Empty</b:BinLabel><b:BinLabel>Productive"
+                "</b:BinLabel><b:BinLabel>Other</b:BinLabel></b:BinLabels>"
+                "</ProdDist></PipeStats>" % (pipe, base, "".join(
+                    "<b:BinCount>%d</b:BinCount>" % p for p in prod)))
+    return {"Num_of_reads": len(hq), "Throughput": int(sum(hq)),
+            "Longest_read": int(max(hq)), "Throughput(Control)": ctl,
+            "Productivity": dict(zip(("P0", "P1", "P2"), prod)),
+            "records": len(subs) + len(scraps)}
+
+
+def write_rs_run(d, rng):
+    """An RS-II run folder: an sts.csv of N_RS_ROWS ZMWs (extra columns,
+    in another order than the QC reads them) and an sts.xml. -> the
+    planted values."""
+    import numpy as np
+
+    n = N_RS_ROWS
+    score = ["%.4f" % v for v in rng.uniform(0.0, 0.95, n)]
+    start = rng.randint(0, 2000, n)
+    # no HQ region on half of the ZMWs the QC leaves out (ReadScore <=
+    # 0.1), as on a real run
+    low = np.array([float(v) <= 0.1 for v in score])
+    hq_len = np.where(low & (rng.rand(n) < 0.5), 0,
+                      rng.randint(100, 30000, n))
+    with open(os.path.join(d, "m1.sts.csv"), "w") as f:
+        f.write("Zmw,Productivity,NumBases,HQRegionStart,HQRegionEnd,"
+                "ReadScore,SnrA\n")
+        for i in range(n):
+            f.write("%d,%d,%d,%d,%d,%s,%.2f\n" % (
+                i, int(hq_len[i] > 0), start[i] + hq_len[i] + 300, start[i],
+                start[i] + hq_len[i], score[i], 7.5))
+    prod = [int(rng.randint(1000, 9000)) for _ in range(3)]
+    ns = "http://pacificbiosciences.com/PipelineStats/PipeStats.xsd"
+    with open(os.path.join(d, "m1.sts.xml"), "w") as f:
+        f.write('<?xml version="1.0"?>\n<Report xmlns="%s"><ProdDist>%s'
+                "<BinLabel>Empty</BinLabel><BinLabel>Productive</BinLabel>"
+                "<BinLabel>Other</BinLabel></ProdDist></Report>" % (
+                    ns, "".join("<BinCount>%d</BinCount>" % p
+                                for p in prod)))
+    vals = hq_len[~low]
+    return {"Num_of_reads": len(vals), "Throughput": int(vals.sum()),
+            "Longest_read": int(vals.max()),
+            "Productivity": dict(zip(("P0", "P1", "P2"), prod))}
+
+
+def write_ont_run(d, rng):
+    """N_ONT_FILES single-read fast5 files (h5py). -> the planted
+    values."""
+    import h5py
+    import numpy as np
+
+    rate, mx = 4000, 0
+    for i in range(N_ONT_FILES):
+        with h5py.File(os.path.join(d, "read_%d.fast5" % i), "w") as f:
+            g = f.create_group("/UniqueGlobalKey/channel_id")
+            g.attrs["channel_number"] = str(int(rng.randint(1, 513)))
+            g.attrs["sampling_rate"] = float(rate)
+            ct = f.create_group("/UniqueGlobalKey/context_tags")
+            ct.attrs["flowcell_type"] = np.bytes_("FLO-MIN106")
+            ct.attrs["sequencing_kit"] = np.bytes_("SQK-LSK109")
+            s, dur = int(rng.randint(0, 3000)), int(rng.randint(5, 600))
+            r = f.create_group("Raw/Reads/Read_%d" % i)
+            r.attrs["start_time"] = s * rate
+            r.attrs["duration"] = dur * rate
+            mx = max(mx, s + dur)
+    return {"Sequencing time in seconds": mx, "Flowcell": "FLO-MIN106",
+            "Sequencing kit": "SQK-LSK109"}
+
+
+def runqc_runs(workdir):
+    """Phase 13: `runqc sequel`, `runqc rs2` and, where h5py is
+    installed, `runqc minion` through cli.main on run folders written
+    here (--no-report where matplotlib is missing); the QC JSON's counts
+    must equal what the writer planted."""
+    import importlib.util
+    import numpy as np
+
+    no_plot = importlib.util.find_spec("matplotlib") is None
+    rng = np.random.RandomState(1313)
+    runs = [("sequel", write_sequel_run, "QC_vals_sequel.json"),
+            ("rs2", write_rs_run, "QC_vals_rs.json")]
+    if importlib.util.find_spec("h5py") is not None:
+        runs.append(("minion", write_ont_run, "QC_vals_minion.json"))
+    else:
+        log("phase 13: runqc minion not run: h5py is not installed here, "
+            "so no fast5 file can be written or read")
+    for platform, write, json_name in runs:
+        d = os.path.join(workdir, "run_" + platform)
+        os.makedirs(d)
+        t = time.time()
+        planted = write(d, rng)
+        t_write = time.time() - t
+        out = os.path.join(workdir, "runqc_" + platform)
+        argv = ["runqc", "-o", out] + (["--no-report"] if no_plot else []) \
+            + [platform, d]
+        _, _, secs = run_cli(argv)
+        with open(os.path.join(out, json_name)) as f:
+            qc = json.load(f)
+        figs = os.listdir(os.path.join(out, "fig"))
+        log("runqc -o runqc_%s%s %s run_%s (planted %s, written in %.1f "
+            "s): %.2f s; %d figures; QC JSON %s" % (
+                platform, " --no-report" if no_plot else "", platform,
+                platform, json.dumps(planted), t_write, secs, len(figs),
+                json.dumps(qc)))
+        for key, val in planted.items():
+            if key != "records" and qc[key] != val:
+                raise AssertionError("phase 13: runqc %s %s = %r, planted "
+                                     "%r" % (platform, key, qc[key], val))
+        if bool(figs) == no_plot:
+            raise AssertionError("phase 13: runqc %s drew %d figures"
+                                 % (platform, len(figs)))
+
+
 def main():
     t_all = time.time()
     if not os.path.isdir(os.path.join(HERE, "longqc_tpu_torch")):
@@ -1672,11 +2137,23 @@ def main():
             % ", ".join(missing)))
         t = time.time()
         launches10a = sampleqc_ont(dev, workdir, targets5, missing)
+        targets12 = targets5[:N_DB_TARGETS]
         del targets5
         log("phase 10a %.1f s" % (time.time() - t))
         t = time.time()
         launches10b = sampleqc_pb(dev, workdir, queries7, missing)
         log("phase 10b %.1f s" % (time.time() - t))
+        # phase 11: sampleqc -d; phase 12: mmcov -d / -z and the batched
+        # chainer; phase 13: runqc
+        t = time.time()
+        launches11 = sampleqc_db(dev, workdir, queries7, missing)
+        log("phase 11 %.1f s" % (time.time() - t))
+        t = time.time()
+        launches12 = mmcov_db_z_chainer(dev, workdir, targets12, queries7)
+        log("phase 12 %.1f s" % (time.time() - t))
+        t = time.time()
+        runqc_runs(workdir)
+        log("phase 13 %.1f s" % (time.time() - t))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1710,7 +2187,9 @@ def main():
         if name in BIG_RUN["kernels"]:
             entry["launches_phase9"] = launches9[name]
         for phase, l10 in (("phase10a", launches10a),
-                           ("phase10b", launches10b)):
+                           ("phase10b", launches10b),
+                           ("phase11", launches11),
+                           ("batched_chainer", launches12)):
             if name in l10:
                 entry["launches_" + phase] = l10[name]
         if name in HPC_KERNELS:

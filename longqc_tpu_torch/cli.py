@@ -1,14 +1,12 @@
 """Command-line interface: `python -m longqc_tpu_torch <subcommand>`.
 
-Ported so far: `sampleqc` (reference-free sample QC, with the JAX
-package's flags; `-d` is not ported), `help`, and `mmcov`, the overlap
-engine's debug surface (the minimap2-coverage binary CLI,
-minimap2-coverage.c:37-197), on its default path (any k <= 28, so also
-the pb-hifi fast preset's wide hashes at k = 19, and any -w up to 255)
-and with -H (HPC sketch, k <= 15: the spike-in-control filter run).
-`mmcov -z` and `-d`, `sampleqc -d` and the `runqc` subcommand are not
-ported yet. Every subcommand runs on the card unless `--device cpu` is
-given.
+The JAX package's subcommands: `runqc` (per-run instrument QC of RS-II,
+Sequel and MinION / GridION runs: host code, no device work),
+`sampleqc` (reference-free sample QC, with the JAX package's flags),
+`help`, and `mmcov`, the overlap engine's debug surface (the
+minimap2-coverage binary CLI, minimap2-coverage.c:37-197) with its -d
+index cache and -z minimizer-count aggregation. `sampleqc` and `mmcov`
+run on the card unless `--device cpu` is given.
 """
 
 import argparse
@@ -18,22 +16,33 @@ import sys
 from longqc_tpu_torch._version import __version__
 from longqc_tpu_torch.config import PRESETS, DEFAULT_N_SAMPLE
 
-NOT_PORTED = ("runqc",)
+
+def command_run(args):
+    from longqc_tpu_torch.platform import nanopore, rs, sequel
+    suf, report = args.suf, not args.no_report
+    if args.platform == "rs2":
+        rs.run_platformqc(args.raw_data_dir, args.out, suffix=suf,
+                          report=report)
+    elif args.platform == "sequel":
+        sequel.run_platformqc(args.raw_data_dir, args.out, suffix=suf,
+                              report=report)
+    elif args.platform in ("minion", "gridion"):
+        nanopore.run_platformqc(args.platform, args.raw_data_dir, args.out,
+                                suffix=suf, n_channel=512, report=report)
 
 
 def command_sample(args):
     from longqc_tpu_torch.engine.pipeline import run_sampleqc
 
-    if args.db:
-        raise SystemExit("sampleqc -d: not yet ported")
     stats = {}
     run_sampleqc(
         args.input, args.out, args.preset,
         nsample=args.nsample, transcript=bool(args.transcript),
         suffix=args.suf, trim_out=args.trim, adp5=args.adp5,
         adp3=args.adp3, fast=bool(args.fast), mem=args.mem,
-        index_size=args.inds, short=bool(args.short), ncpu=args.ncpu,
-        force_pb=args.pb, force_sequel=args.sequel, force_ont=args.ont,
+        index_size=args.inds, short=bool(args.short), db=bool(args.db),
+        ncpu=args.ncpu, force_pb=args.pb, force_sequel=args.sequel,
+        force_ont=args.ont,
         device=args.device, report=not args.no_report, stats=stats)
     if args.stats:
         with open(args.stats, "w") as f:
@@ -47,17 +56,21 @@ def command_help(args):
 
 
 def command_mmcov(args):
-    """Emit the 9-column coverage TSV on stdout."""
+    """Emit the 9-column coverage TSV on stdout. -d dumps (no query) or
+    builds-or-loads (with a query) the npz index cache and maps with the
+    host spec; -z also runs the minimizer-count aggregation (the
+    reference computes it and discards the output — its printfs are
+    commented out, minimap2-coverage.c:478-543 — so it goes to stderr,
+    where it cannot disturb the TSV)."""
+    import numpy as np
+
     from longqc_tpu_torch.config import (FltOpt, IndexOpt, MapOpt,
                                          OverlapConfig, parse_num)
+    from longqc_tpu_torch.engine import overlap_host as oh
     from longqc_tpu_torch.engine.overlap import overlap_run_device
     from longqc_tpu_torch.io import native
     from longqc_tpu_torch.io.fastx import iter_fastx_timed, reader_name
 
-    if args.z or args.db:
-        raise SystemExit("mmcov -z / -d: not yet ported")
-    if args.query is None:
-        raise SystemExit("mmcov: no query given")
     cfg = OverlapConfig(
         index=IndexOpt(k=args.k, w=args.w, is_hpc=bool(args.hpc),
                        batch_size=parse_num(args.inds)),
@@ -69,12 +82,41 @@ def command_mmcov(args):
     parse_s = {}
     targets = ([n, s, q or ""] for n, s, q in
                iter_fastx_timed(args.target, parse_s, "target"))
-    queries = [[n, s, q or ""] for n, s, q in
-               iter_fastx_timed(args.query, parse_s, "query")]
     stats = {}
-    rows = overlap_run_device(targets, queries, cfg, device=args.device,
-                              stats=stats)
-    sys.stdout.write("\n".join(rows) + "\n")
+    if args.query is None:
+        if not args.db:
+            raise SystemExit("mmcov: no query given and -d not set")
+        # index-dump-only mode (minimap2-coverage.c:460-468)
+        for i, part in enumerate(oh.iter_index_parts(
+                targets, cfg.index.batch_size)):
+            oh.build_index(part, args.k, args.w, is_hpc=cfg.index.is_hpc,
+                           device=args.device).save(
+                "%s.part%04d.npz" % (args.db, i))
+        stats["engine"] = "index_dump"
+    else:
+        queries = [[n, s, q or ""] for n, s, q in
+                   iter_fastx_timed(args.query, parse_s, "query")]
+        if args.z:
+            # -z needs the per-read m_cnts state: the host spec keeps it
+            # (the device engine keeps m_cnts on the device)
+            rows, states, q_sk = oh.overlap_run_with_states(
+                targets, queries, cfg, index_cache=args.db or None,
+                device=args.device)
+            counts = oh.aggregate_minimizer_counts(q_sk, states)
+            for j, cval in enumerate(np.asarray(counts).tolist()):
+                print("[z] minimizer %d cnt: %d" % (j, cval),
+                      file=sys.stderr)
+            stats["engine"] = "host_spec"
+        elif args.db:
+            # -d with a query: build-or-load the npz cache, then map with
+            # the host spec (the reference's tempdb flow)
+            rows = oh.overlap_run(targets, queries, cfg,
+                                  index_cache=args.db, device=args.device)
+            stats["engine"] = "host_spec"
+        else:
+            rows = overlap_run_device(targets, queries, cfg,
+                                      device=args.device, stats=stats)
+        sys.stdout.write("\n".join(rows) + "\n")
     # which FASTA/FASTQ reader parsed the inputs, its build and the
     # seconds spent inside it per file
     stats["reader"] = dict(native.BUILD, name=reader_name(),
@@ -91,6 +133,18 @@ def build_parser():
     parser.add_argument("-v", "--version", action="version",
                         version="%(prog)s " + __version__)
     sub = parser.add_subparsers()
+
+    platforms = ["rs2", "sequel", "minion", "gridion"]
+    p_run = sub.add_parser("runqc", help="per-run instrument QC")
+    p_run.add_argument("-s", "--suffix", dest="suf", default=None)
+    p_run.add_argument("-o", "--output", dest="out", default=None)
+    p_run.add_argument("platform", choices=platforms)
+    p_run.add_argument("raw_data_dir", type=str)
+    p_run.add_argument("--no-report", dest="no_report", action="store_true",
+                       default=False,
+                       help="write the QC JSON alone: no figures (they "
+                            "need matplotlib)")
+    p_run.set_defaults(handler=command_run)
 
     p_s = sub.add_parser("sampleqc", help="reference-free sample QC")
     p_s.add_argument("input", help="input [fasta, fastq, pbbam or fast5 dir]")
@@ -115,7 +169,9 @@ def build_parser():
                      help="host-thread budget (advisory: stages run as "
                           "in-process device programs here)")
     p_s.add_argument("-d", "--db", dest="db", action="store_true",
-                     default=False, help="index prefetch (not yet ported)")
+                     default=False,
+                     help="build the overlap index in parallel to other "
+                          "tasks (persisted as npz parts)")
     # hidden expert flags (longQC.py:942-947)
     p_s.add_argument("--pb", help=argparse.SUPPRESS, dest="pb",
                      action="store_true", default=None)
@@ -151,22 +207,24 @@ def build_parser():
     p_m.add_argument("-l", type=int, default=0, help="min overlap len")
     p_m.add_argument("-c", type=int, default=3, help="min coverage")
     p_m.add_argument("-d", dest="db", default=None,
-                     help="npz index cache (not yet ported)")
+                     help="npz index cache path prefix (dump-only when "
+                          "no query is given)")
     p_m.add_argument("-z", dest="z", action="store_true", default=False,
-                     help="minimizer-count aggregation (not yet ported)")
+                     help="minimizer-count aggregation (reported on "
+                          "stderr; the reference computes and discards "
+                          "it, minimap2-coverage.c:478-543)")
     p_m.add_argument("--filter", dest="filter", action="store_true",
                      default=False)
     p_m.add_argument("--stats", default=None,
                      help="write the engine's run counters (JSON) here: "
-                          "phase seconds, step calls, flags, host-fixed "
-                          "rows, host-only and hash-range-built parts")
+                          "which engine ran, phase seconds, step calls, "
+                          "flags, host-fixed rows, host-only and "
+                          "hash-range-built parts (the batched chainer: "
+                          "its B2 calls and device / host rows)")
     p_m.add_argument("--device", default="cuda",
                      help="torch device of the engine (default cuda; "
                           "raises when no GPU is present)")
     p_m.set_defaults(handler=command_mmcov)
-
-    for name in NOT_PORTED:
-        sub.add_parser(name, help="not yet ported")
 
     p_h = sub.add_parser("help", help="see `help -h`")
     p_h.add_argument("command")
@@ -175,9 +233,6 @@ def build_parser():
 
 
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        raise SystemExit("longqc_tpu_torch %s: not yet ported" % argv[0])
     parser = build_parser()
     args = parser.parse_args(argv)
     if hasattr(args, "handler"):

@@ -943,12 +943,17 @@ class DeviceOverlapEngine:
     def _static(self, g, A):
         return _make_static(self.cfg, g.M, g.M2, A, self.k)
 
-    def run(self, target_iter):
+    def run(self, target_iter, parts=None):
         """Part loop: build each part's index, run every query group
-        against it, then finalize the rows."""
+        against it, then finalize the rows. parts: pre-grouped part
+        read-lists (the -d prefetch path), iterated in place of
+        target_iter's parts."""
         cfg = self.cfg
         _ = self.groups
-        for part in oh.iter_index_parts(target_iter, cfg.index.batch_size):
+        part_iter = (iter(parts) if parts is not None
+                     else oh.iter_index_parts(target_iter,
+                                              cfg.index.batch_size))
+        for part in part_iter:
             t0 = time.time()
             pidx = _PartIndex(part, self.k, self.w, cfg.map.mid_occ,
                               cfg.map.mid_occ_frac, self.tile_ladder,
@@ -1272,12 +1277,13 @@ class DeviceOverlapEngine:
 
 
 def overlap_run_device2(target_iter, query_reads, cfg: OverlapConfig,
-                        device="cuda", stats=None):
+                        device="cuda", stats=None, parts=None):
     """Device-resident overlap run -> 9-column TSV rows (row-identical
     to overlap_host.overlap_run). stats: optional dict that receives
-    the engine's counters (DeviceOverlapEngine.stats)."""
+    the engine's counters (DeviceOverlapEngine.stats). parts:
+    pre-grouped part read-lists (the -d prefetch path)."""
     eng = DeviceOverlapEngine(cfg, query_reads, device=device)
-    rows = eng.run(target_iter)
+    rows = eng.run(target_iter, parts=parts)
     if stats is not None:
         stats.update(eng.stats())
     if eng.n_host_fallback:

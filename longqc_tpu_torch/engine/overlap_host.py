@@ -22,10 +22,14 @@ Behavioral citations:
   interval compression        lqmap.c:25-100
   reliable-region sweep       lqutils.c:83-155
   output rows                 minimap2-coverage.c:545-617
+  minimizer-count aggregation minimap2-coverage.c:478-543 (-z)
 
-Not ported yet: the -d/-z surfaces (index npz cache, minimizer-count
-aggregation).
+The -d index cache is an npz file per part with the JAX package's keys
+and dtypes (h uint64, rid and ps int64, seq_lens int64, names object),
+so a cache written by either package loads in the other.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -83,6 +87,39 @@ class MinimizerIndex:
         kth = int((1.0 - frac) * n)
         kth = min(kth, n - 1)
         return int(np.partition(self.counts, kth)[kth]) + 1
+
+    def lookup(self, h):
+        """-> (start, count) into the sorted arrays for hash h."""
+        i = np.searchsorted(self.uniq, h)
+        if i < len(self.uniq) and self.uniq[i] == h:
+            return int(self.starts[i]), int(self.counts[i])
+        return 0, 0
+
+    def save(self, path):
+        """Persist the index (the -d index-dump equivalent; the cache
+        format is npz rather than the reference's MMI)."""
+        np.savez_compressed(
+            path, h=self.h, rid=self.rid, ps=self.ps,
+            seq_lens=self.seq_lens,
+            names=np.array(self.names, dtype=object))
+
+    @classmethod
+    def load(cls, path):
+        """An index saved by `save` (or by the JAX package's)."""
+        z = np.load(path, allow_pickle=True)
+        idx = cls.__new__(cls)
+        idx.h = z["h"]
+        idx.rid = z["rid"]
+        idx.ps = z["ps"]
+        idx.seq_lens = z["seq_lens"]
+        idx.names = list(z["names"])
+        idx.uniq, idx.starts = np.unique(idx.h, return_index=True)
+        idx.counts = np.diff(np.append(idx.starts, len(idx.h)))
+        uniq_names = sorted(set(idx.names))
+        idx.name_rank = {n: i for i, n in enumerate(uniq_names)}
+        idx.rid_rank = np.array([idx.name_rank[n] for n in idx.names],
+                                np.int64)
+        return idx
 
 
 def _len_bucket(n):
@@ -581,12 +618,24 @@ def iter_index_parts(target_iter, batch_size, mini_batch_size=50_000_000):
 
 
 def overlap_run(target_iter, query_reads, cfg: OverlapConfig,
-                device="cuda"):
+                chain_many=None, parts=None, index_cache=None,
+                return_states=False, device="cuda"):
     """Full engine run -> list of 9-column TSV row strings
     (cf. minimap2-coverage.c:545-617).
 
     target_iter: iterable of [name, seq, qual] — consumed once,
     streamed part by part (bounded memory).
+    chain_many: optional callable([(ax, ay), ...], map_opt) -> list of
+    chain lists; default runs the exact host chain DP per query. The
+    batched-chainer path (engine/overlap.DeviceChainer) passes B2 here.
+    parts: optional pre-grouped list of part read-lists (overrides
+    target_iter streaming; the -d prefetch path).
+    index_cache: optional path prefix for per-part MinimizerIndex npz
+    persistence (the -d tempdb equivalent, longQC.py:266-277): part i
+    loads from `{index_cache}.part{i:04d}.npz` when present, else builds
+    and saves.
+    return_states: also return the per-read ReadStates and the query
+    sketches (overlap_run_with_states).
     device: where the tensor sketch runs (the rest is host numpy); the
     card unless the caller asks for the CPU.
     """
@@ -596,27 +645,51 @@ def overlap_run(target_iter, query_reads, cfg: OverlapConfig,
     states = [ReadState(len(s[0])) for s in q_sketches]
     m = cfg.map
 
-    for part in iter_index_parts(target_iter, cfg.index.batch_size):
-        index = build_index(part, k, w, is_hpc=hpc, device=device)
+    if chain_many is None:
+        def chain_many(anchor_sets, m):
+            return [chain_dp(ax, ay, m.max_gap, m.bw, m.max_chain_skip,
+                             m.min_cnt, m.min_chain_score)
+                    for ax, ay in anchor_sets]
+
+    group_size = 128
+    part_iter = (iter(parts) if parts is not None
+                 else iter_index_parts(target_iter, cfg.index.batch_size))
+    for part_i, part in enumerate(part_iter):
+        cache_path = ("%s.part%04d.npz" % (index_cache, part_i)
+                      if index_cache else None)
+        if cache_path and os.path.exists(cache_path):
+            index = MinimizerIndex.load(cache_path)
+        else:
+            index = build_index(part, k, w, is_hpc=hpc, device=device)
+            if cache_path:
+                index.save(cache_path)
         mid_occ = m.mid_occ or index.mid_occ(m.mid_occ_frac)
         fopt = {
             "seq_lens": index.seq_lens,
             "min_ratio": cfg.flt.min_ratio,
             "max_overhang": cfg.flt.max_overhang,
         }
-        for qi, q in enumerate(query_reads):
-            qlen = len(q[1])
-            ax, ay, mini_pos = collect_seed_hits(
-                index, q[0], qlen, q_sketches[qi], mid_occ,
-                no_self=True, ava=cfg.ava)
-            chains = chain_dp(ax, ay, m.max_gap, m.bw, m.max_chain_skip,
-                              m.min_cnt, m.min_chain_score)
-            regs = [chain_to_reg(ax, ay, qlen, sc, idx)
-                    for sc, idx in chains]
-            cv = lq_cnt_match(states[qi], qlen, regs, ax, ay, mini_pos,
-                              m.min_score_med, m.min_score_good, fopt,
-                              covt=cfg.covt)
-            filter_redundant_coords(states[qi], cv, cfg.flt.min_coverage)
+        for g0 in range(0, len(query_reads), group_size):
+            group = range(g0, min(g0 + group_size, len(query_reads)))
+            anchor_sets, mini_list = [], []
+            for qi in group:
+                q = query_reads[qi]
+                ax, ay, mini_pos = collect_seed_hits(
+                    index, q[0], len(q[1]), q_sketches[qi], mid_occ,
+                    no_self=True, ava=cfg.ava)
+                anchor_sets.append((ax, ay))
+                mini_list.append(mini_pos)
+            chains_list = chain_many(anchor_sets, m)
+            for gi, qi in enumerate(group):
+                qlen = len(query_reads[qi][1])
+                ax, ay = anchor_sets[gi]
+                regs = [chain_to_reg(ax, ay, qlen, sc, idx)
+                        for sc, idx in chains_list[gi]]
+                cv = lq_cnt_match(states[qi], qlen, regs, ax, ay,
+                                  mini_list[gi], m.min_score_med,
+                                  m.min_score_good, fopt, covt=cfg.covt)
+                filter_redundant_coords(states[qi], cv,
+                                        cfg.flt.min_coverage)
 
     # final per-read rows (minimap2-coverage.c:545-617)
     rows = []
@@ -638,7 +711,17 @@ def overlap_run(target_iter, query_reads, cfg: OverlapConfig,
         vc.sort()
         rows.append(emit_row(q[0], len(q[1]), q[2], st.lam, st.lam2, div,
                              vc, cfg.flt.min_coverage, cfg.filter_mode))
+    if return_states:
+        return rows, states, q_sketches
     return rows
+
+
+def overlap_run_with_states(target_iter, query_reads, cfg, **kw):
+    """overlap_run returning (rows, per-read ReadStates, query sketches)
+    — the -z minimizer-count mode needs the m_cnts state
+    (minimap2-coverage.c:478-543)."""
+    return overlap_run(target_iter, query_reads, cfg, return_states=True,
+                       **kw)
 
 
 def div_score(mv_n, n_match, avg_k):
@@ -672,3 +755,16 @@ def emit_row(qname, qlen, qqual, lam, lam2, div, events_sorted, min_cov,
             format_f3(c5), format_f3(meanq), format_f3(div), c8)
     return "%s\t%d\t%d\t0\t0\t0.0\t%s\t%s\t0.0" % (
         qname, qlen, lam, format_f3(meanq), format_f3(div))
+
+
+def aggregate_minimizer_counts(q_sketches, states):
+    """-z minimizer-count aggregation (minimap2-coverage.c:478-543):
+    per-minimizer match counts summed over all queries, keyed by
+    minimizer hash; -> the totals sorted descending (what the reference
+    computes in its paper-revision debug mode)."""
+    totals = {}
+    for sk, st in zip(q_sketches, states):
+        h = np.asarray(sk[0], np.uint64)
+        for hh, c in zip(h.tolist(), st.m_cnts.tolist()):
+            totals[hh] = totals.get(hh, 0) + int(c)
+    return np.sort(np.array(list(totals.values()), np.int64))[::-1]

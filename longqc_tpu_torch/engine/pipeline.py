@@ -5,7 +5,8 @@ Reproduces the reference's sampleqc flow (longQC.py:66-865) as named
 stages, in the JAX package's order:
   1. chunk QC: chunked streaming of the input with per-chunk masking
      (sdust table), adapter search, reservoir subsampling and GC
-     accumulation;
+     accumulation; with -d, the index prefetch on a thread beside it
+     (target parts grouped, each part's host index persisted as npz);
   2. sample exclusion: highly-masked sampled reads are replaced;
   3. overlap: the all-vs-sample run (engine/overlap, kernels B1-B4);
   4. spike-in: the PacBio spike-in-control filter run;
@@ -36,6 +37,7 @@ from collections import OrderedDict
 import numpy as np
 
 from longqc_tpu_torch import config as C
+from longqc_tpu_torch.engine import overlap_host as oh
 from longqc_tpu_torch.engine.masking import MaskAccumulator
 from longqc_tpu_torch.engine.overlap import overlap_run_device as overlap_run
 from longqc_tpu_torch.io import native
@@ -109,8 +111,10 @@ def run_sampleqc(input_path, out_dir, preset_name, *, nsample=5000,
                  device="cuda", report=True, stats=None):
     """Run sample QC. Returns the JSON dict of QC values.
 
-    db: the -d/--db flag (build the overlap index beside the chunk-QC
-    loop, persisted as npz parts) is not ported yet and raises.
+    db: the -d/--db flag: group the target reads into index parts and
+    build and persist each part's host index (npz) on a thread beside
+    the chunk-QC loop; the overlap then runs from those parts (not for
+    BAM / FAST5 input, as in the reference).
     ncpu: advisory host-thread budget (-p; the reference spends these on
     subprocess pools; here stages are in-process device programs).
     force_pb/force_sequel/force_ont: the hidden expert flags
@@ -122,8 +126,10 @@ def run_sampleqc(input_path, out_dir, preset_name, *, nsample=5000,
     stats: a dict that receives each stage's seconds (`stage_s`; within
     the chunk loop, `mask` ran on a worker thread beside
     `adapter_sample_gc`, and `mask_wait` is what the loop waited), the
-    overlap engine's counters (`overlap`, `spike_in`), and which reader
-    and sdust recursion ran (`reader`, `sdust`).
+    overlap engine's counters (`overlap`, `spike_in`), which reader and
+    sdust recursion ran (`reader`, `sdust`) and, with db, the prefetch
+    thread's seconds, the overlap's wait to join it and its parts
+    (`prefetch`).
     """
     if not os.path.exists(input_path):
         raise FileNotFoundError(input_path)
@@ -131,9 +137,6 @@ def run_sampleqc(input_path, out_dir, preset_name, *, nsample=5000,
         raise ValueError("n_sample out of range")
     if os.path.exists(out_dir):
         raise FileExistsError("output path %s already exists" % out_dir)
-    if db:
-        raise NotImplementedError("sampleqc -d (index prefetch into an npz "
-                                  "cache): not yet ported")
     missing = missing_report_modules() if report else []
     if missing:
         raise ImportError("the report stage needs %s (not installed); run "
@@ -175,6 +178,14 @@ def run_sampleqc(input_path, out_dir, preset_name, *, nsample=5000,
         logger.info("sampleqc started: %s preset=%s device=%s", input_path,
                     preset_name, device)
 
+        prefetcher = None
+        if db and file_format_code not in (FORMAT_BAM, FORMAT_FAST5):
+            prefetcher = _IndexPrefetcher.for_sample(
+                input_path, preset, fast, index_size, short, paths, device)
+            prefetcher.start()
+            logger.info("index prefetch started (-d): %d spec(s)",
+                        len(prefetcher.specs))
+
         t0 = time.time()
         cq = _chunk_qc(input_path, file_format_code, fastx_path, paths,
                        suffix, nsample, mem, adp5, adp3, trim_out, device,
@@ -194,7 +205,7 @@ def run_sampleqc(input_path, out_dir, preset_name, *, nsample=5000,
         targets = (fastx_path if file_format_code in
                    (FORMAT_BAM, FORMAT_FAST5) else input_path)
         rows = _overlap(targets, s_reads, ss_reads, preset, fast,
-                        index_size, short, device, paths, stats)
+                        index_size, short, device, paths, stats, prefetcher)
         stage_s["overlap"] = time.time() - t0
 
         t0 = time.time()
@@ -391,22 +402,37 @@ def _exclude_masked(s_reads, mask, input_path, file_format_code, short,
 
 
 def _overlap(targets, s_reads, ss_reads, preset, fast, index_size, short,
-             device, paths, stats):
-    """All reads against the sample -> the coverage rows (written)."""
+             device, paths, stats, prefetcher=None):
+    """All reads against the sample -> the coverage rows (written). With
+    a prefetcher (-d), its parts and npz caches."""
     cfg = C.overlap_config_for_sample(preset, fast=fast,
                                       index_size=index_size)
     logger.info("overlap computation started")
+    parts = cache = None
+    if prefetcher is not None:
+        t0 = time.time()
+        parts = prefetcher.join()
+        stats["prefetch"] = {"thread_s": prefetcher.seconds,
+                             "join_wait_s": time.time() - t0,
+                             "parts": len(parts),
+                             "caches": [p for _k, _w, p in prefetcher.specs]}
+        cache = prefetcher.cache_for(cfg.index.k, cfg.index.w)
+        logger.info("index prefetch joined: %d part(s)", len(parts))
     stats["overlap"] = {}
     rows = overlap_run(_read_stream(targets), s_reads, cfg, device=device,
-                       stats=stats["overlap"])
+                       stats=stats["overlap"], parts=parts,
+                       index_cache=cache)
     if short and ss_reads:
         scfg = C.overlap_config_for_sample(preset, fast=fast,
                                            index_size=index_size,
                                            short=True)
+        scache = (prefetcher.cache_for(scfg.index.k, scfg.index.w)
+                  if prefetcher is not None else None)
         stats["overlap_short"] = {}
         rows = rows + overlap_run(_read_stream(targets), ss_reads, scfg,
                                   device=device,
-                                  stats=stats["overlap_short"])
+                                  stats=stats["overlap_short"],
+                                  parts=parts, index_cache=scache)
     with open(paths.cov, "w") as f:
         f.write("\n".join(rows) + "\n")
     logger.info("overlap computation finished")
@@ -565,6 +591,75 @@ def _report(cq, mask, qc, preset, suffix, paths, s_n_seqs,
         adp_pos3, nonsense_warn, nonsense_err, qc["very_low_cov"],
         transcript)
     render_report(root, paths.html)
+
+
+class _IndexPrefetcher:
+    """The -d/--db flow: stream the target reads, group them into index
+    parts, and build and persist each part's host MinimizerIndex as npz,
+    on a thread beside the chunk-QC loop (the reference's
+    `LqExec(minimap2-coverage -d tempdb)`, longQC.py:266-277; the cache
+    format is npz instead of MMI). The indexes sketch on the given
+    device."""
+
+    def __init__(self, input_path, specs, batch_size, device):
+        import threading
+        self.input_path = input_path
+        self.specs = specs            # [(k, w, cache_prefix), ...]
+        self.batch_size = batch_size
+        self.device = device
+        self.parts = None
+        self.error = None
+        self.seconds = None           # the thread's wall time
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @classmethod
+    def for_sample(cls, input_path, preset, fast, index_size, short, paths,
+                   device):
+        """One spec per distinct (k, w) of the run: the main overlap's
+        and, with -b, the short reads' one."""
+        cfgs = [C.overlap_config_for_sample(preset, fast=fast,
+                                            index_size=index_size)]
+        if short:
+            cfgs.append(C.overlap_config_for_sample(
+                preset, fast=fast, index_size=index_size, short=True))
+        specs = []
+        for cfg in cfgs:
+            k, w = cfg.index.k, cfg.index.w
+            if (k, w) not in [s[:2] for s in specs]:
+                specs.append((k, w, os.path.join(
+                    paths.mm2, "t_db_longqc%s_k%d_w%d" % (paths.sfx, k, w))))
+        return cls(input_path, specs, cfgs[0].index.batch_size, device)
+
+    def start(self):
+        self._thread.start()
+
+    def _run(self):
+        t0 = time.time()
+        try:
+            parts = list(oh.iter_index_parts(_read_stream(self.input_path),
+                                             self.batch_size))
+            for k, w, prefix in self.specs:
+                for i, part in enumerate(parts):
+                    path = "%s.part%04d.npz" % (prefix, i)
+                    if not os.path.exists(path):
+                        oh.build_index(part, k, w,
+                                       device=self.device).save(path)
+            self.parts = parts
+        except Exception as e:  # surfaced on join()
+            self.error = e
+        self.seconds = time.time() - t0
+
+    def join(self):
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.parts
+
+    def cache_for(self, k, w):
+        for kk, ww, prefix in self.specs:
+            if (kk, ww) == (k, w):
+                return prefix
+        return None
 
 
 def _prefetch_iter(gen, depth=1):

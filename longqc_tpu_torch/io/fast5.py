@@ -6,7 +6,8 @@ and lq_nanopore.open_fast5 / get_fastq_from_multi_fast5
 sizes of name/seq/qual vs the byte budget) is part of the bit-exactness
 contract: the seed-7 reservoir sampler runs per chunk, so a different
 boundary would sample a different read set. Structure here is our own:
-a flat record iterator feeding a generic byte-budget batcher.
+a flat record iterator feeding a generic byte-budget batcher. h5py is
+imported on the first open, so the module loads where it is missing.
 """
 
 import os
@@ -15,20 +16,15 @@ from logging import getLogger
 
 logger = getLogger(__name__)
 
-try:
-    import h5py
-    HAS_H5PY = True
-except ImportError:  # pragma: no cover
-    h5py = None
-    HAS_H5PY = False
-
 # basecall group holding the fastq payload of one read in a multi-fast5
 _FASTQ_PATH = "Analyses/Basecall_1D_000/BaseCalled_template/Fastq"
 
 
 def open_fast5(path):
-    if not HAS_H5PY:
-        raise RuntimeError("h5py is required for fast5 input")
+    try:
+        import h5py
+    except ImportError:
+        raise RuntimeError("h5py is required for fast5 input") from None
     return h5py.File(path, "r")
 
 

@@ -135,3 +135,40 @@ def plot_unmasked_gc_frac(gc_acc, fp=None, b_width=0.02):
     if fp:
         plt.savefig(fp, bbox_inches="tight", transparent=True)
     plt.close()
+
+
+def plot_polread_lengths(fig_path, vals, numbases, a, b, _max, _mean,
+                         _n50, _n90, b_width):
+    """runqc (RS-II, Sequel): HQ-region (polymerase read) lengths with
+    their gamma fit, against the whole reads' lengths (lq_rs.py,
+    lq_sequel.py)."""
+    plt = pyplot()
+    x = np.linspace(0, gamma.ppf(0.99, a, 0, b))
+    plt.plot(x, gamma(a, 0, b).pdf(x), c=rgb(214, 39, 40))
+    plt.grid(True)
+    plt.hist(vals, histtype="step",
+             bins=np.arange(min(vals), _max + b_width, b_width),
+             color=rgb(214, 39, 40), alpha=0.7, density=True)
+    plt.xlabel("Read length")
+    plt.ylabel("Probability density")
+    good = rgb(44, 160, 44)
+    meh = rgb(188, 189, 34)
+    plt.axvline(x=_mean, linestyle="dashed", linewidth=2,
+                color=good if _mean >= 10000 else meh, alpha=0.8)
+    plt.axvline(x=_n50, linewidth=2,
+                color=good if _n50 >= 20000 else meh, alpha=0.8)
+    plt.hist(numbases, histtype="step",
+             bins=np.arange(min(numbases), max(numbases) + b_width, b_width),
+             color=rgb(31, 119, 180), alpha=0.7, density=True)
+    ymin, ymax = plt.gca().get_ylim()
+    xmin, xmax = plt.gca().get_xlim()
+    plt.text(xmax * 0.6, ymax * 0.72,
+             r"$\alpha=%.3f,\ \beta=%.3f$" % (a, b))
+    plt.text(xmax * 0.6, ymax * 0.77, r"Gamma dist params:")
+    plt.text(xmax * 0.6, ymax * 0.85, r"sample mean: %.3f" % (_mean,))
+    plt.text(xmax * 0.6, ymax * 0.9, r"N50: %.3f" % (_n50,))
+    plt.text(xmax * 0.6, ymax * 0.95, r"N90: %.3f" % (_n90,))
+    plt.text(_mean, ymax * 0.85, r"Mean")
+    plt.text(_n50, ymax * 0.9, r"N50")
+    plt.savefig(fig_path, bbox_inches="tight")
+    plt.close()

@@ -1,10 +1,11 @@
 """`python -m longqc_tpu_torch mmcov` prints the same TSV as
 `python -m longqc_tpu mmcov` (the port on CPU tensors, --device cpu),
 in plain mode (with the pb-hifi fast preset's wide hashes too) and in the
-HPC spike-in filter run, and the surfaces that are not ported yet say
-so."""
+HPC spike-in filter run; the surfaces ported last (mmcov -z / -d,
+sampleqc -d, runqc) run from the CLI."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -95,15 +96,28 @@ def test_mmcov_hpc_filter_matches_jax_package(tmp_path, capsys):
     assert sum(r.split("\t")[3] != "0" for r in rows[14:]) >= 4
 
 
-def test_unported_surfaces(tmp_path):
-    tf, qf = _dataset(tmp_path, n=20, nq=4)
-    for argv in (["mmcov", "-z", "--device", "cpu", tf, qf],
-                 ["sampleqc", "-d", "-x", "ont-ligation", "-o", "out",
-                  "--device", "cpu", tf],
-                 ["runqc", "minion", "dir"]):
-        with pytest.raises(SystemExit) as e:
-            main(argv)
-        assert "not yet ported" in str(e.value.code)
+def test_unported_surfaces(tmp_path, capsys):
+    """The surfaces that once exited "not yet ported" run: mmcov -z and
+    -d, sampleqc -d, runqc (an empty run folder: logged, nothing
+    computed)."""
+    tf, qf = _dataset(tmp_path, n=30, nq=4)
+    db = str(tmp_path / "tdb")
+    assert main(["mmcov", "-z", "-d", db, "--device", "cpu", tf, qf]) == 0
+    cap = capsys.readouterr()
+    assert len(cap.out.splitlines()) == 4
+    assert cap.err.count("[z] minimizer ") > 0
+    assert os.path.exists(db + ".part0000.npz")
+    out = str(tmp_path / "out")
+    assert main(["sampleqc", "-d", "-x", "ont-ligation", "-n", "20", "-o",
+                 out, "--device", "cpu", "--no-report", tf]) == 0
+    assert os.path.exists(os.path.join(
+        out, "analysis", "minimap2", "t_db_longqc_k12_w5.part0000.npz"))
+    (tmp_path / "empty_run").mkdir()
+    assert main(["runqc", "--no-report", "-o", str(tmp_path / "rq"),
+                 "minion", str(tmp_path / "empty_run")]) == 0
+    assert os.listdir(str(tmp_path / "rq" / "log"))
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError):      # --device defaults to cuda
-            main(["mmcov", tf, qf])
+        for argv in (["mmcov", tf, qf], ["mmcov", "-z", tf, qf],
+                     ["mmcov", "-d", db + "2", tf]):
+            with pytest.raises(RuntimeError):  # --device defaults to cuda
+                main(argv)

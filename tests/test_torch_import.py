@@ -19,10 +19,11 @@ mods = [m.name for m in pkgutil.walk_packages(longqc_tpu_torch.__path__,
                                               "longqc_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-# the sampleqc slice's modules are among them
+# the sampleqc and runqc slices' modules are among them
 for m in ("io.sampling", "io.stats", "ops.sdust", "ops.gc", "ops.adapter",
           "ops.distfit", "engine.masking", "engine.pipeline",
-          "report.coverage", "report.plots", "report.html"):
+          "report.coverage", "report.plots", "report.html", "platform",
+          "platform.rs", "platform.sequel", "platform.nanopore"):
     assert "longqc_tpu_torch." + m in mods, m
 assert "jax" not in sys.modules, "jax imported"
 assert not any(m == "longqc_tpu" or m.startswith("longqc_tpu.")
@@ -46,8 +47,9 @@ assert len(comp[0]) == 8
 assert "jax" not in sys.modules, "jax imported"
 assert _ext._lib is None and not _ext.LAUNCHES
 # the report stage's modules load only where a figure or the HTML is
-# drawn, and no table is read with pandas
-for m in ("matplotlib", "jinja2", "pandas"):
+# drawn, no table is read with pandas, and h5py loads with the first
+# fast5 file
+for m in ("matplotlib", "jinja2", "pandas", "h5py"):
     assert m not in sys.modules, m + " imported"
 print(len(mods))
 """
@@ -86,15 +88,23 @@ def test_kernel_wrappers_refuse_cpu_mixed_inputs():
     (OverlapConfig(index=IndexOpt(k=19, w=10, is_hpc=True)), "k <= 15"),
 ], ids=["hpc"])
 def test_unported_configs_raise(cfg, match):
+    """The device engine rejects the configuration; the dispatcher runs
+    it on the batched-chainer path instead, as the JAX package does."""
+    from longqc_tpu_torch.engine.device_overlap import DeviceOverlapEngine
     from longqc_tpu_torch.engine.overlap import overlap_run_device
 
+    q = [["q", "ACGT" * 50, ""]]
     with pytest.raises(NotImplementedError, match=match):
-        overlap_run_device([], [["q", "ACGT" * 50, ""]], cfg, device="cpu")
+        DeviceOverlapEngine(cfg, q, device="cpu")
+    stats = {}
+    rows = overlap_run_device([], q, cfg, device="cpu", stats=stats)
+    assert len(rows) == 1 and stats["engine"] == "batched_chainer"
 
 
 def _entry_calls():
     from longqc_tpu_torch import convert
     from longqc_tpu_torch.engine import overlap_host as oh
+    from longqc_tpu_torch.engine.overlap import DeviceChainer
     from longqc_tpu_torch.ops import extend, sketch_hpc
 
     reads = [["r", "ACGTTGCAAGGCTTAACCGG" * 20, ""]]
@@ -115,12 +125,17 @@ def _entry_calls():
                                                                 10),
         "index_from_arrays": lambda: convert.index_from_arrays(z, z, z, 3),
         "group_from_arrays": lambda: convert.group_from_arrays(arrays),
+        "DeviceChainer": DeviceChainer,
+        "overlap_run_with_states": lambda: oh.overlap_run_with_states(
+            list(reads), reads, cfg),
     }
 
 
 @pytest.mark.parametrize("name", ["extz_batch", "overlap_run", "build_index",
                                   "sketch_reads_device", "sketch_reads_hpc",
-                                  "index_from_arrays", "group_from_arrays"])
+                                  "index_from_arrays", "group_from_arrays",
+                                  "DeviceChainer",
+                                  "overlap_run_with_states"])
 def test_entry_points_default_to_the_card(name):
     """With no device given, numpy inputs go to the card: where there is
     none the call raises instead of running on the CPU."""

@@ -262,3 +262,66 @@ def test_sampleqc_card_run_equals_cpu_run(tmp_path, dev, preset):
         want = json.load(f)
     with open(os.path.join(outs["cuda"], QC_JSON)) as f:
         compare_qc_json(json.load(f), want)
+
+
+def test_sampleqc_db_card_run_equals_cpu_run(tmp_path, dev):
+    """sampleqc -d: the index prefetch sketches on the card beside the
+    chunk-QC loop; the npz part, the tables and the QC JSON equal the
+    same run on the CPU."""
+    from longqc_tpu_torch.engine import pipeline
+    from torch_util import assert_same_npz
+    from util_synth import write_fastq_file
+
+    fq = str(tmp_path / "in.fq")
+    write_fastq_file(fq, ont_sampleqc_reads())
+    outs = {}
+    for d in ("cpu", "cuda"):
+        outs[d] = str(tmp_path / d)
+        stats = {}
+        pipeline.run_sampleqc(fq, outs[d], "ont-ligation", nsample=30,
+                              db=True, device=dev if d == "cuda" else d,
+                              report=False, stats=stats)
+        assert stats["prefetch"]["parts"] == 1
+    part = os.path.join("analysis", "minimap2",
+                        "t_db_longqc_k12_w5.part0000.npz")
+    assert_same_npz(os.path.join(outs["cuda"], part),
+                    os.path.join(outs["cpu"], part))
+    for table in SAMPLEQC_TABLES:
+        assert filecmp.cmp(os.path.join(outs["cpu"], table),
+                           os.path.join(outs["cuda"], table), shallow=False)
+    with open(os.path.join(outs["cpu"], QC_JSON)) as f:
+        want = json.load(f)
+    with open(os.path.join(outs["cuda"], QC_JSON)) as f:
+        compare_qc_json(json.load(f), want)
+
+
+def test_batched_chainer_card_equals_cpu_run(tmp_path, dev, capsys):
+    """DeviceChainer with B2 on the card against its CPU run (the plain
+    B2) on seeded anchor sets, rows past the top rung included; and
+    `mmcov -H -k 17` (the device engine rejects it) on the card against
+    its CPU run, B2 launched."""
+    from longqc_tpu_torch.cli import main
+    from longqc_tpu_torch.config import MapOpt
+    from longqc_tpu_torch.engine.overlap import DeviceChainer
+    from longqc_tpu_torch.ops import _ext
+    from torch_util import (assert_same_chains, chainer_anchor_sets,
+                            k17_inputs)
+
+    m = MapOpt()
+    for k, w, hpc in ((12, 5, False), (17, 10, True)):
+        sets = chainer_anchor_sets(7, 70, k, w, hpc)
+        got = {}
+        for d in ("cpu", dev):
+            ch = DeviceChainer(device=d)
+            ch.a_ladder = (128, 256)
+            got[str(d)] = ch(sets, m)
+        assert_same_chains(got[str(dev)], got["cpu"])
+    tf, qf = k17_inputs(tmp_path)
+    flags = ["mmcov", "-H", "-k", "17", "-w", "10", "-c", "1", "-l", "0",
+             "--filter"]
+    assert main(flags + ["--device", "cpu", tf, qf]) == 0
+    want = capsys.readouterr().out
+    _ext.reset_launches()
+    assert main(flags + [tf, qf]) == 0
+    assert capsys.readouterr().out == want
+    assert _ext.LAUNCHES["chain"] >= 1

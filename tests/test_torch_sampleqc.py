@@ -129,17 +129,29 @@ def test_pb_spike_in_table(pb):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """What the CLI once refused now runs: sampleqc -d through cli.main
+    and run_sampleqc(db=True) give the run's tables and its npz part;
+    runqc sequel on a folder without BAMs logs the fault and writes no
+    QC JSON."""
     fq = str(tmp_path / "in.fq")
-    write_fastq_file(fq, ont_sampleqc_reads()[:5])
-    with pytest.raises(SystemExit, match="not yet ported"):
-        main(["sampleqc", "-x", "ont-ligation", "-d", "-o",
-              str(tmp_path / "o"), "--device", "cpu", fq])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pipeline.run_sampleqc(fq, str(tmp_path / "o2"), "ont-ligation",
-                              db=True, device="cpu")
-    with pytest.raises(SystemExit, match="not yet ported"):
-        main(["runqc", "sequel", str(tmp_path)])
-    assert not os.path.exists(str(tmp_path / "o"))
+    write_fastq_file(fq, ont_sampleqc_reads()[:30])
+    out, out2 = str(tmp_path / "o"), str(tmp_path / "o2")
+    assert main(["sampleqc", "-x", "ont-ligation", "-n", "20", "-d", "-o",
+                 out, "--device", "cpu", "--no-report", fq]) == 0
+    stats = {}
+    pipeline.run_sampleqc(fq, out2, "ont-ligation", nsample=20, db=True,
+                          device="cpu", report=False, stats=stats)
+    assert stats["prefetch"]["parts"] == 1
+    for table in TABLES + [JSON]:
+        assert filecmp.cmp(os.path.join(out, table),
+                           os.path.join(out2, table), shallow=False)
+    for o in (out, out2):
+        assert os.path.exists(os.path.join(
+            o, "analysis", "minimap2", "t_db_longqc_k12_w5.part0000.npz"))
+    rq = str(tmp_path / "rq")
+    assert main(["runqc", "--no-report", "-o", rq, "sequel",
+                 str(tmp_path)]) == 0
+    assert not os.path.exists(os.path.join(rq, "QC_vals_sequel.json"))
 
 
 def test_json_only_and_missing_report_modules(tmp_path, monkeypatch):

@@ -8,9 +8,11 @@ import numpy as np
 import pytest
 import torch
 
+from longqc_tpu_torch.config import MapOpt
+from longqc_tpu_torch.engine import overlap_host as oh
 from longqc_tpu_torch.engine.pipeline import _control_ref_path
 from longqc_tpu_torch.io.fastx import iter_fastx
-from util_synth import make_genome, sample_reads
+from util_synth import make_genome, sample_reads, write_fastq_file
 
 torch.set_num_threads(2)
 
@@ -110,3 +112,54 @@ def compare_qc_json(got, want, path=""):
         assert got == pytest.approx(want, rel=1e-9), path
     else:
         assert got == want, path
+
+
+def assert_same_npz(got, want):
+    """Two index caches (npz): the same keys, and per key the same dtype
+    and values."""
+    with np.load(got, allow_pickle=True) as za, \
+            np.load(want, allow_pickle=True) as zb:
+        a = {key: za[key] for key in za.files}
+        b = {key: zb[key] for key in zb.files}
+    assert sorted(a) == sorted(b) == ["h", "names", "ps", "rid",
+                                      "seq_lens"]
+    for key in b:
+        assert a[key].dtype == b[key].dtype, key
+        assert np.array_equal(a[key], b[key]), key
+
+
+def chainer_anchor_sets(seed, n, k, w, hpc):
+    """Anchor sets of n reads against an index of 80 reads (10 % junk),
+    as the host spec collects them (on the CPU)."""
+    rng = np.random.RandomState(seed)
+    reads = sample_reads(rng, make_genome(rng, 15000), 80, min_len=500,
+                         max_len=2500, err=0.12, junk_frac=0.1)
+    idx = oh.build_index(reads, k, w, is_hpc=hpc, device="cpu")
+    sk = oh._sketch_reads(reads[:n], k, w, hpc, "cpu")
+    mid_occ = idx.mid_occ(MapOpt().mid_occ_frac)
+    return [oh.collect_seed_hits(idx, q[0], len(q[1]), sk[i], mid_occ)[:2]
+            for i, q in enumerate(reads[:n])]
+
+
+def assert_same_chains(got, want):
+    """Two lists of chain lists [(score, anchor indices), ...]."""
+    assert len(got) == len(want)
+    for g, h in zip(got, want):
+        assert [s for s, _ in g] == [s for s, _ in h]
+        for (_, gi), (_, hi) in zip(g, h):
+            assert gi.dtype == hi.dtype and np.array_equal(gi, hi)
+
+
+def k17_inputs(tmp_path):
+    """`mmcov -H -k 17` inputs: the Sequel control of the port's refs/
+    as the target, 14 reads of a random genome and 6 of the control as
+    the queries. -> (target path, query path)."""
+    rng = np.random.RandomState(41)
+    reads = sample_reads(rng, make_genome(rng, 15000), 14, min_len=600,
+                         max_len=1400, err=0.12, junk_frac=0.1)
+    ctl = [s for _n, s, _q in iter_fastx(_control_ref_path(True))]
+    reads += [["ctl%d" % i] + r[1:] for i, r in enumerate(sample_reads(
+        rng, ctl[0] * 3, 6, min_len=600, max_len=1400, err=0.12))]
+    qf = str(tmp_path / "query.fq")
+    write_fastq_file(qf, reads)
+    return _control_ref_path(True), qf
