@@ -564,10 +564,20 @@ def _range_merge(chunks, k, n_real, range_max, mid_occ_fixed,
     return [ih, irid, ips], S, mo
 
 
+def pack_part(part, w, ladder=TILE_LADDER):
+    """The build's host step: the part's tiles (multi-read, then jumbo)
+    and the seconds the packing took. Numpy only, so it may run on a
+    thread beside another part's device work."""
+    t0 = time.time()
+    tiles, jumbo = pack_part_tiles(part, w, ladder=ladder)
+    return tiles + jumbo, time.time() - t0
+
+
 def build_device_index(part, k, w, *, device, ladder=TILE_LADDER,
                        n_idx_sizes=N_IDX_SIZES, mid_occ_fixed=0,
                        mid_occ_frac=2e-4, range_max=RANGE_MAX,
-                       max_entries=INDEX_MAX, mem_free=None, on_chunk=None):
+                       max_entries=INDEX_MAX, mem_free=None, on_chunk=None,
+                       tiles=None):
     """Build the sorted device index for one part. Returns a dict with
     ih (hash_dtype(k)) / irid / ips (int32) flat tensors of width
     n_idx, mid_occ (0-d int32 tensor), n_tiles, n_real (real entries),
@@ -578,14 +588,15 @@ def build_device_index(part, k, w, *, device, ladder=TILE_LADDER,
     max_entries real entries, or when a part past the ladder would need
     more device bytes (reckon_bytes) than mem_free (default: what
     free_bytes reports). on_chunk(chunk, n_real), if given, sees every
-    tile's final sorted chunk before the merge."""
+    tile's final sorted chunk before the merge. tiles: the part's tiles
+    from pack_part, packed ahead by the caller (build_s then has no
+    "pack" entry); None packs them here."""
     device = torch.device(device)
-    t0 = time.time()
-    tiles, jumbo = pack_part_tiles(part, w, ladder=ladder)
-    tiles = tiles + jumbo
+    secs = {}
+    if tiles is None:
+        tiles, secs["pack"] = pack_part(part, w, ladder=ladder)
     if not tiles:
         raise IndexOverflowError("empty part")
-    secs = {"pack": time.time() - t0}
     t0 = time.time()
     need = 0
     if sum(_crop_width(t.R * t.W) for t in tiles) <= n_idx_sizes[-1]:

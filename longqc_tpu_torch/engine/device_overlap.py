@@ -38,14 +38,27 @@ comparison, so neither does its F_GEOM.
 Shapes follow the JAX engine (GROUP_Q, the _len_bucket query buckets,
 the anchor rungs, CV/EOUT/EV_B) so the parity tests compare
 intermediates shape for shape. PyTorch runs eagerly, so the TPU-only
-machinery (ahead-of-time compiles, asynchronous pulls, the mesh path)
-has no counterpart.
+machinery (ahead-of-time compiles, asynchronous pulls, the warm-up
+thread) has no counterpart.
+
+Multi-device (the JAX engine's mesh path): given a device list, a
+group's lanes split into one shard per device. The group is sketched,
+counted and given its rung whole on the first device; each shard steps
+on its own device against that device's copy of the part index (one
+copy per part and distinct device), and its accumulators stay there
+until the finalize. Every shard's step is launched before the first
+pull, so the cards run together. The part loop is pipelined as in the
+JAX engine: part N+1 is read and packed on a side thread while part N's
+groups step (DeviceOverlapEngine.run).
 
 Behavioral citations as in overlap_host.py: index.c:69-144,
 lqmap.c:140-205, chain.c:22-157, esterr.c:72-140, lqmap.c:25-100,
 minimap2-coverage.c:545-617.
 """
 
+import concurrent.futures as cf
+import os
+import threading
 import time
 from bisect import bisect_left
 from collections import defaultdict
@@ -663,11 +676,43 @@ def _len_bucket(n):
     return b
 
 
+class _Shard:
+    """Lanes [lo, hi) of a query group on one device: their step inputs
+    and their accumulators (lam, lam2, avgk_set, avgk_val, m_cnts), which
+    stay on that device from staging to the finalize; no collective runs
+    in between (per-read-owned state, minimap2-coverage.c:434-444). One
+    shard over the whole group on the group's device holds views of the
+    group's tensors, so the one-device run copies nothing."""
+
+    def __init__(self, g, lo, hi, device):
+        self.lo, self.hi, self.device = lo, hi, device
+        self.qps, self.qcnt, self.n_slots, self.n_exp, self.qlen, \
+            self.qvalid = (self.put(t) for t in (g.qps, g.qcnt, g.n_slots,
+                                                 g.n_exp, g.qlen, g.qvalid))
+        L = hi - lo
+        self.lam = torch.zeros(L, dtype=_I64, device=device)
+        self.lam2 = torch.zeros(L, dtype=_I64, device=device)
+        self.avgk_set = torch.zeros(L, dtype=_I32, device=device)
+        # HPC: the kept-minimizer mean span (f32) of each processed row
+        self.avgk_val = torch.zeros(L, dtype=torch.float32,
+                                    device=device) if g.hpc else None
+        self.m_cnts = torch.zeros((L, g.M2), dtype=_I32, device=device)
+
+    def put(self, a):
+        """This shard's lanes of a group-wide tensor or numpy array, on
+        the shard's device (a view where they already lie there)."""
+        if isinstance(a, np.ndarray):
+            a = torch.from_numpy(a)
+        return a[self.lo:self.hi].to(self.device)
+
+
 class _Group:
-    """A batch of query lanes sharing one length bucket."""
+    """A batch of query lanes sharing one length bucket, sketched and
+    compacted on `device`, its lanes split into one shard per entry of
+    `devices` (lanes / len(devices) each)."""
 
     def __init__(self, qids, reads, k, w, device, lanes=GROUP_Q,
-                 hpc=False):
+                 hpc=False, devices=None):
         self.lanes = lanes
         self.device = device
         self.qids = qids                     # lane -> global query index
@@ -715,16 +760,17 @@ class _Group:
         # overflow — adversarial periodic reads)
         self.perm_host = ovf.cpu().numpy()
         self.ns_max = int(ns_max)
-        # state
-        self.lam = torch.zeros(lanes, dtype=_I64, device=device)
-        self.lam2 = torch.zeros(lanes, dtype=_I64, device=device)
-        self.avgk_set = torch.zeros(lanes, dtype=_I32, device=device)
-        # HPC: the kept-minimizer mean span (f32) of each processed row
-        self.avgk_val = torch.zeros(lanes, dtype=torch.float32,
-                                    device=device) if hpc else None
-        self.m_cnts = torch.zeros((lanes, self.M2), dtype=_I32,
-                                  device=device)
+        devices = devices or [device]
+        L = lanes // len(devices)
+        self.shards = [_Shard(self, s * L, (s + 1) * L, dev)
+                       for s, dev in enumerate(devices)]
         self._host_sketch = None
+
+    def pull(self, name):
+        """A per-lane accumulator of every shard, on the host, in lane
+        order."""
+        return np.concatenate([getattr(sh, name).cpu().numpy()
+                               for sh in self.shards])
 
     def count_crop(self):
         """Search-width rung for the count pass: smallest of
@@ -773,11 +819,19 @@ class _PartIndex:
     than the device's free memory) the part is host_only and every row
     is computed by the host spec. HPC parts (the small spike-in control
     targets, longQC.py:255) take the host spec's index, moved to the
-    device layout, and keep the ladder: past it they are host_only."""
+    device layout, and keep the ladder: past it they are host_only.
+
+    The constructor is the host step (names, ranks, lengths and the
+    packed tiles; numpy only, so the engine runs it on its side thread);
+    build() is the device step (B1, the sorts, the merge), which the
+    engine runs on the main thread once the previous part's index is
+    released. `copies` maps each device of the run to the index arrays
+    the step reads there (engine.DeviceOverlapEngine._replicate)."""
 
     def __init__(self, part, k, w, mid_occ_fixed, mid_occ_frac, ladder,
                  n_idx_sizes, device, hpc=False, range_max=di.RANGE_MAX,
                  max_entries=di.INDEX_MAX):
+        t0 = time.time()
         self.part = part
         self.names = [r[0] for r in part]
         uniq = sorted(set(self.names))
@@ -789,22 +843,37 @@ class _PartIndex:
             raise ValueError("part of %d reads exceeds the 24-bit read id "
                              "of the anchor keys" % B)
         self.B_pad = next(b for b in B_PADS if B <= b)
-        rid_rank = np.full(self.B_pad, -2, np.int32)
-        rid_rank[:B] = [self.name_rank[n] for n in self.names]
-        seq_lens = np.zeros(self.B_pad, np.int32)
-        seq_lens[:B] = [len(r[1]) for r in part]
-        self.rid_rank = torch.from_numpy(rid_rank).to(device)
-        self.seq_lens = torch.from_numpy(seq_lens).to(device)
+        self._rid_rank = np.full(self.B_pad, -2, np.int32)
+        self._rid_rank[:B] = [self.name_rank[n] for n in self.names]
+        self._seq_lens = np.zeros(self.B_pad, np.int32)
+        self._seq_lens[:B] = [len(r[1]) for r in part]
         self.host_only = False
         self.hpc = hpc
         self._host_index = None
         self._k, self._w = k, w
+        self._opts = (mid_occ_fixed, mid_occ_frac, ladder, n_idx_sizes,
+                      range_max, max_entries)
         self.device = device
         self.ih = self.irid = self.ips = self.mid_occ = None
+        self.rid_rank = self.seq_lens = None
+        self.copies = {}
         self.n_ranges = 0
+        self.tiles = None
         self.build_s = {}
-        if hpc:
-            self._host_index = hidx = oh.build_index(part, k, w,
+        if not hpc:
+            self.tiles, self.build_s["pack"] = di.pack_part(part, w,
+                                                            ladder=ladder)
+        self.prep_s = time.time() - t0
+
+    def build(self):
+        """The device step: the index arrays on self.device."""
+        (mid_occ_fixed, mid_occ_frac, ladder, n_idx_sizes, range_max,
+         max_entries) = self._opts
+        device, k, w = self.device, self._k, self._w
+        self.rid_rank = torch.from_numpy(self._rid_rank).to(device)
+        self.seq_lens = torch.from_numpy(self._seq_lens).to(device)
+        if self.hpc:
+            self._host_index = hidx = oh.build_index(self.part, k, w,
                                                      is_hpc=True,
                                                      device=device)
             n_real = len(hidx.h)
@@ -822,20 +891,28 @@ class _PartIndex:
                 mid_occ_fixed or hidx.mid_occ(mid_occ_frac),
                 dtype=_I32, device=device)
             return
+        tiles, self.tiles = self.tiles, None
         try:
             idx = di.build_device_index(
-                part, k, w, device=device, ladder=ladder,
+                self.part, k, w, device=device, ladder=ladder,
                 n_idx_sizes=n_idx_sizes, mid_occ_fixed=mid_occ_fixed,
                 mid_occ_frac=mid_occ_frac, range_max=range_max,
-                max_entries=max_entries)
+                max_entries=max_entries, tiles=tiles)
             self.ih, self.irid, self.ips = idx["ih"], idx["irid"], idx["ips"]
             self.mid_occ = idx["mid_occ"]
             self.n_ranges = idx["n_ranges"]
-            self.build_s = idx["build_s"]
+            self.build_s.update(idx["build_s"])
         except di.IndexOverflowError:
             logger.warning("device index overflow; part falls back to "
                            "the host path")
             self.host_only = True
+
+    def drop_device(self):
+        """Release the device index (the part is computed by the host
+        spec alone, with the index's mid_occ)."""
+        self.host_only = True
+        self.ih = self.irid = self.ips = None
+        self.copies = {}
 
     def host_index(self):
         """Exact host MinimizerIndex for this part (built lazily, only
@@ -847,31 +924,77 @@ class _PartIndex:
         return self._host_index
 
 
+def _a_ladder(a_ladder, on_gpu):
+    """The anchor rungs: a_ladder, else LONGQC_A_LADDER (a comma list, as
+    the JAX engine reads it), else A_LADDER on the card and A_BUCKETS on
+    the CPU."""
+    if a_ladder is None:
+        env = os.environ.get("LONGQC_A_LADDER")
+        if env:
+            a_ladder = tuple(int(x) for x in env.split(","))
+        else:
+            a_ladder = A_LADDER if on_gpu else A_BUCKETS
+    return tuple(a_ladder)
+
+
 class DeviceOverlapEngine:
     """Device-resident overlap engine with exact per-row host fallback.
     Produces rows bit-identical to overlap_host.overlap_run."""
 
-    def __init__(self, cfg: OverlapConfig, query_reads, device="cuda"):
+    def __init__(self, cfg: OverlapConfig, query_reads, device="cuda",
+                 devices=None, lanes_per_shard=GROUP_Q, a_ladder=None):
         """device: the torch device of every tensor of the run. On CUDA
         the anchor rungs are A_LADDER and the tile / index widths the
         production ladders; on the CPU (plain kernel twins, tests) the
-        coarser A_BUCKETS and the small ladders."""
+        coarser A_BUCKETS and the small ladders (the part the JAX
+        engine's `geometry=` chooses).
+
+        devices: the device list the query lanes are sharded over (the
+        JAX engine's `mesh`; parallel.mesh.make_mesh gives one), in place
+        of `device`: a group is sketched, counted and given its anchor
+        rung whole on devices[0], then each shard of lanes_per_shard
+        lanes steps on its own device, where its accumulators stay; the
+        part index is copied once per part to each distinct device.
+        Entries may repeat (["cuda:0"] * 2: two shards, one copy). None:
+        one shard on `device`. A group holds lanes_per_shard x
+        len(devices) lanes. HPC runs on one device only, and parts built
+        by hash range are computed by the host spec under a device list,
+        as in the JAX engine.
+
+        a_ladder: the anchor rungs (default: LONGQC_A_LADDER, else by
+        device type, _a_ladder). The JAX engine's `interpret=` (Pallas
+        only) has no counterpart."""
         self.hpc = cfg.index.is_hpc
         if self.hpc and 2 * cfg.index.k > 30:
             # HPC keys carry hash << 8 | span and the hash rides int32
             # lanes (k <= 15); every reference HPC surface (spike-in
             # filter, pb-hifi main run) uses k = 15
             raise NotImplementedError("HPC device engine requires k <= 15")
-        self.device = require_device(device)
+        if self.hpc and devices is not None:
+            raise NotImplementedError(
+                "HPC sketch is single-device (filter runs are small)")
+        if devices is None:
+            self.devices = [require_device(device)]
+        else:
+            self.devices = [require_device(d) for d in devices]
+            if not self.devices or \
+                    len({d.type for d in self.devices}) != 1:
+                raise ValueError("devices: a non-empty list of devices of "
+                                 "one type, got %r" % (devices,))
+        self.sharded = devices is not None
+        self.device = self.devices[0]
         on_gpu = self.device.type == "cuda"
         self.cfg = cfg
         self.k, self.w = cfg.index.k, cfg.index.w
         # HPC rows get their own tables per step (avg_qspan is
-        # data-dependent); plain mode has one for every row
-        self.pen_tab = None if self.hpc else torch.from_numpy(
-            gap_penalty_table(np.float32(self.k), cfg.map.bw)[None, :]
-        ).to(self.device)
-        self.a_ladder = A_LADDER if on_gpu else A_BUCKETS
+        # data-dependent); plain mode has one for every row, on each
+        # device of the run
+        self.pen_tab = {}
+        if not self.hpc:
+            pen = torch.from_numpy(
+                gap_penalty_table(np.float32(self.k), cfg.map.bw)[None, :])
+            self.pen_tab = {d: pen.to(d) for d in self.devices}
+        self.a_ladder = _a_ladder(a_ladder, on_gpu)
         if on_gpu:
             self.tile_ladder = di.TILE_LADDER
             self.n_idx_sizes = di.N_IDX_SIZES
@@ -882,7 +1005,8 @@ class DeviceOverlapEngine:
         # most entries a part's index may hold
         self.range_max = di.RANGE_MAX
         self.max_index_entries = di.INDEX_MAX
-        self.lanes = GROUP_Q
+        self.lanes_per_shard = lanes_per_shard
+        self.lanes = lanes_per_shard * len(self.devices)
         self.queries = query_reads
         by_bucket = {}
         for i, r in enumerate(query_reads):
@@ -898,16 +1022,21 @@ class DeviceOverlapEngine:
         self.part_ranges = []     # per part: hash ranges (0: the ladder)
         self.n_device_calls = 0
         self.n_retry_steps = 0
+        self.n_index_copies = 0   # (part, distinct device) index copies
+        self.n_parts_aside = 0    # parts whose host step ran on the thread
         self.phase_s = defaultdict(float)   # wall time per phase
         self.index_s = defaultdict(float)   # `index` split by build step
         self.flag_counts = defaultdict(int)
 
     def stats(self):
-        """Run counters: wall seconds per phase (and of the device index
-        builds: host packing, B1 plus chunks, the merge), step calls and
-        retry steps, final flag counts by bit pattern, host-fixed rows,
-        host-only parts, parts built by hash range and each part's
-        number of hash ranges."""
+        """Run counters: wall seconds per phase (`part_wait`: the main
+        thread waiting for the side thread's next part) and of the device
+        index builds (host packing, B1 plus chunks, the merge), step
+        calls and retry steps, final flag counts by bit pattern,
+        host-fixed rows, host-only parts, parts built by hash range and
+        each part's number of hash ranges, the run's devices (`shards`),
+        index copies (one per part and distinct device) and the parts
+        packed on the side thread."""
         return {"phase_s": dict(self.phase_s),
                 "index_s": dict(self.index_s),
                 "device_calls": self.n_device_calls,
@@ -917,7 +1046,10 @@ class DeviceOverlapEngine:
                 "host_fixed_rows": self.n_host_fallback,
                 "host_only_parts": self.n_host_only_parts,
                 "hash_range_parts": self.n_hash_range_parts,
-                "part_ranges": list(self.part_ranges)}
+                "part_ranges": list(self.part_ranges),
+                "shards": [str(d) for d in self.devices],
+                "index_copies": self.n_index_copies,
+                "parts_packed_aside": self.n_parts_aside}
 
     @property
     def n_hash_range_parts(self):
@@ -935,7 +1067,7 @@ class DeviceOverlapEngine:
                     gs.append(_Group(idxs[off:off + self.lanes],
                                      self.queries, self.k, self.w,
                                      self.device, lanes=self.lanes,
-                                     hpc=self.hpc))
+                                     hpc=self.hpc, devices=self.devices))
             self._groups = gs
             self.phase_s["stage"] += time.time() - t0
         return self._groups
@@ -943,61 +1075,108 @@ class DeviceOverlapEngine:
     def _static(self, g, A):
         return _make_static(self.cfg, g.M, g.M2, A, self.k)
 
-    def run(self, target_iter, parts=None):
-        """Part loop: build each part's index, run every query group
-        against it, then finalize the rows. parts: pre-grouped part
-        read-lists (the -d prefetch path), iterated in place of
-        target_iter's parts."""
+    def run(self, target_iter, parts=None, progress=None):
+        """Pipelined part loop (the kt_pipeline role, kthread.c:129-158):
+        a one-slot side thread reads part N+1 and runs its host step
+        (names, ranks, tile packing) while part N's groups step; the main
+        thread stages the query groups while the first part is read, and
+        runs each part's device build only once the previous part's index
+        is released, so one device build is live at a time. A side-thread
+        failure is raised here. parts: pre-grouped part read-lists (the
+        -d prefetch path), iterated in place of target_iter's parts.
+        progress: called with the query index once per row and part."""
         cfg = self.cfg
-        _ = self.groups
         part_iter = (iter(parts) if parts is not None
                      else oh.iter_index_parts(target_iter,
                                               cfg.index.batch_size))
-        for part in part_iter:
-            t0 = time.time()
+        main = threading.get_ident()
+
+        def prepare():
+            part = next(part_iter, None)
+            if part is None:
+                return None
             pidx = _PartIndex(part, self.k, self.w, cfg.map.mid_occ,
                               cfg.map.mid_occ_frac, self.tile_ladder,
                               self.n_idx_sizes, self.device, hpc=self.hpc,
                               range_max=self.range_max,
                               max_entries=self.max_index_entries)
-            self.phase_s["index"] += time.time() - t0
-            self.part_ranges.append(pidx.n_ranges)
-            for key, v in pidx.build_s.items():
-                self.index_s[key] += v
-            self._run_part(pidx)
+            pidx.aside = threading.get_ident() != main
+            return pidx
+
+        with cf.ThreadPoolExecutor(max_workers=1,
+                                   thread_name_prefix="longqc-part") as ex:
+            fut = ex.submit(prepare)
+            _ = self.groups
+            while True:
+                t0 = time.time()
+                pidx = fut.result()
+                self.phase_s["part_wait"] += time.time() - t0
+                if pidx is None:
+                    break
+                fut = ex.submit(prepare)
+                self.n_parts_aside += pidx.aside
+                t0 = time.time()
+                pidx.build()
+                self.phase_s["index"] += pidx.prep_s + time.time() - t0
+                for key, v in pidx.build_s.items():
+                    self.index_s[key] += v
+                self.part_ranges.append(pidx.n_ranges)
+                self._run_part(pidx, progress)
+                pidx = None           # release the index before the next
         t0 = time.time()
         rows = self._finalize()
         self.phase_s["finalize"] += time.time() - t0
         return rows
 
-    def _step_group(self, g, pidx, qrank_d, qbisect_d, qvalid, A, left,
-                    occ):
-        """One (part x group) step at anchor rung A; left/occ are the
-        count pass's seed-lookup tables. Returns (packed_small,
-        events_full)."""
+    def _replicate(self, pidx):
+        """The part index on each distinct device of the run: the
+        arrays the step reads (the count pass runs on devices[0] alone,
+        so `ih` stays there), copied once per part."""
+        for dev in self.devices:
+            if dev in pidx.copies:
+                continue
+            pidx.copies[dev] = tuple(
+                t.to(dev) for t in (pidx.irid, pidx.ips, pidx.seq_lens,
+                                    pidx.rid_rank, pidx.mid_occ))
+            self.n_index_copies += 1
+
+    def _step_group(self, g, pidx, qrank, qbisect, qvalid, A, left, occ):
+        """One (part x group) step at anchor rung A, each shard on its
+        own device: every shard's work is launched before anything is
+        pulled. qrank / qbisect: per-lane numpy arrays; qvalid: per-lane
+        numpy row mask (None: the group's own); left/occ: the count
+        pass's seed-lookup tables. Returns per-shard (packed_small,
+        events_full) lists."""
         st = self._static(g, A)
         if self.hpc:
-            return self._step_group_hpc(g, pidx, qrank_d, qbisect_d, qvalid,
-                                        st, left, occ)
-        (g.lam, g.lam2, g.avgk_set, g.m_cnts, small, full) = _step_impl(
-            pidx.irid, pidx.ips, pidx.seq_lens, pidx.rid_rank, pidx.mid_occ,
-            left, occ, g.qps, g.qcnt, g.n_slots, g.n_exp, g.qlen, qrank_d,
-            qbisect_d, qvalid, g.lam, g.lam2, g.avgk_set, g.m_cnts,
-            self.pen_tab, st)
+            return self._step_group_hpc(g, pidx, qrank, qbisect, qvalid, st,
+                                        left, occ)
+        smalls, fulls = [], []
+        for sh in g.shards:
+            qv = sh.qvalid if qvalid is None else sh.put(qvalid)
+            (sh.lam, sh.lam2, sh.avgk_set, sh.m_cnts, small,
+             full) = _step_impl(
+                *pidx.copies[sh.device], sh.put(left), sh.put(occ), sh.qps,
+                sh.qcnt, sh.n_slots, sh.n_exp, sh.qlen, sh.put(qrank),
+                sh.put(qbisect), qv, sh.lam, sh.lam2, sh.avgk_set,
+                sh.m_cnts, self.pen_tab[sh.device], st)
+            smalls.append(small)
+            fulls.append(full)
         self.n_device_calls += 1
-        return small, full
+        return smalls, fulls
 
-    def _step_group_hpc(self, g, pidx, qrank_d, qbisect_d, qvalid, st, left,
+    def _step_group_hpc(self, g, pidx, qrank, qbisect, qvalid, st, left,
                         occ):
-        """Two-phase HPC step: anchors and span sums on the device; per
-        row, the f64-exact gap-penalty table of its mean anchor span
-        (the host spec's avg_qspan) and its kept mean span (state.avg_k)
-        on the host; then the chain fill and the accounting on the
-        device."""
+        """Two-phase HPC step (one shard): anchors and span sums on the
+        device; per row, the f64-exact gap-penalty table of its mean
+        anchor span (the host spec's avg_qspan) and its kept mean span
+        (state.avg_k) on the host; then the chain fill and the accounting
+        on the device."""
+        sh, = g.shards
+        irid, ips, seq_lens, rid_rank, mid_occ = pidx.copies[sh.device]
         anchors, stats = _step_hpc_a(
-            pidx.irid, pidx.ips, pidx.rid_rank, pidx.mid_occ, left, occ,
-            g.qps, g.qcnt, g.n_slots, g.qspan, g.qlen, qrank_d, qbisect_d,
-            st)
+            irid, ips, rid_rank, mid_occ, left, occ, g.qps, g.qcnt,
+            g.n_slots, g.qspan, g.qlen, sh.put(qrank), sh.put(qbisect), st)
         stats_np = stats.cpu().numpy()
         bw = self.cfg.map.bw
         pen = np.zeros((self.lanes, bw + 1), np.int32)
@@ -1007,37 +1186,41 @@ class DeviceOverlapEngine:
                 kept_avg[r] = np.float32(kss / nk)
             if n_a > 0:
                 pen[r] = gap_penalty_table(np.float32(ssum / n_a), bw)
-        dev = self.device
-        (g.lam, g.lam2, g.avgk_set, g.avgk_val, g.m_cnts, small,
+        qv = sh.qvalid if qvalid is None else sh.put(qvalid)
+        (sh.lam, sh.lam2, sh.avgk_set, sh.avgk_val, sh.m_cnts, small,
          full) = _step_hpc_b(
-            anchors, pidx.seq_lens, g.qlen, qvalid, g.n_exp, g.lam, g.lam2,
-            g.avgk_set, g.avgk_val, g.m_cnts, torch.from_numpy(pen).to(dev),
-            torch.from_numpy(kept_avg).to(dev), st)
+            anchors, seq_lens, sh.qlen, qv, sh.n_exp, sh.lam, sh.lam2,
+            sh.avgk_set, sh.avgk_val, sh.m_cnts, sh.put(pen),
+            sh.put(kept_avg), st)
         self.n_device_calls += 1
-        return small, full
+        return [small], [full]
 
-    def _unpack_pull(self, small_np, events_full):
-        """Decode a step's packed pull ([flags | ev_n | compact events])
-        into (flags (lanes,), per-row event arrays). Past EV_B events
-        the uncompacted events_full is pulled instead."""
-        Qs = self.lanes
-        flags = small_np[:Qs].copy()
-        en = small_np[Qs:2 * Qs]
-        ev_rows = [None] * Qs
-        if int(en.sum()) > EV_B:
-            full_np = events_full.cpu().numpy()
-            for r in range(Qs):
-                ev_rows[r] = full_np[r, :int(en[r])]
-            return flags, ev_rows
-        ev = small_np[2 * Qs:]
-        off = 0
-        for r in range(Qs):
-            n = int(en[r])
-            ev_rows[r] = ev[off:off + n]
-            off += n
+    def _unpack_pull(self, smalls_np, fulls):
+        """Decode a step's packed pulls, one [flags | ev_n | compact
+        events] block per shard, into (flags (lanes,), per-row event
+        arrays). A shard past EV_B events pulls its uncompacted events
+        instead."""
+        L = self.lanes_per_shard
+        flags = np.empty(self.lanes, np.int32)
+        ev_rows = [None] * self.lanes
+        for s, (b, full) in enumerate(zip(smalls_np, fulls)):
+            flags[s * L:(s + 1) * L] = b[:L]
+            en = b[L:2 * L]
+            if int(en.sum()) > EV_B:
+                full_np = full.cpu().numpy()
+                for r in range(L):
+                    ev_rows[s * L + r] = full_np[r, :int(en[r])]
+                continue
+            ev = b[2 * L:]
+            off = 0
+            for r in range(L):
+                n = int(en[r])
+                ev_rows[s * L + r] = ev[off:off + n]
+                off += n
         return flags, ev_rows
 
-    def _commit_rows(self, g, want, flags_np, ev_rows, forced=()):
+    def _commit_rows(self, g, want, flags_np, ev_rows, progress,
+                     forced=()):
         """Record interval events for rows of `want` that came back
         clean; return the rows that still need work. `forced`: rows
         masked off up front (their count exceeds the top anchor rung)."""
@@ -1049,41 +1232,50 @@ class DeviceOverlapEngine:
             ev = ev_rows[r]
             if ev is not None and len(ev):
                 self.events[qi].extend(int(x) for x in ev)
+            if progress:
+                progress(qi)
         return [r for r in want
                 if flags_np[r] or g.perm_host[r] or r in forced]
 
-    def _retry(self, g, pidx, qrank_d, qbisect_d, rows, flags_np, ev_rows,
-               A, left, occ):
+    def _pull_step(self, smalls, fulls):
+        return self._unpack_pull([s.cpu().numpy() for s in smalls], fulls)
+
+    def _retry(self, g, pidx, qrank, qbisect, rows, flags_np, ev_rows, A,
+               left, occ, progress):
         """Re-run `rows` alone at rung A; returns the rows still needing
         work."""
         t0 = time.time()
         qv = np.zeros(self.lanes, np.int32)
         qv[rows] = 1
-        small2, full2 = self._step_group(
-            g, pidx, qrank_d, qbisect_d,
-            torch.from_numpy(qv).to(self.device), A, left, occ)
+        smalls, fulls = self._step_group(g, pidx, qrank, qbisect, qv, A,
+                                         left, occ)
         self.n_retry_steps += 1
-        flags2, ev_rows2 = self._unpack_pull(small2.cpu().numpy(), full2)
+        flags2, ev_rows2 = self._pull_step(smalls, fulls)
         for r in rows:
             flags_np[r] = flags2[r]
             ev_rows[r] = ev_rows2[r]
         self.phase_s["step"] += time.time() - t0
-        return self._commit_rows(g, rows, flags_np, ev_rows)
+        return self._commit_rows(g, rows, flags_np, ev_rows, progress)
 
-    def _run_part(self, pidx):
+    def _run_part(self, pidx, progress):
         """All query groups against one part: count pass -> step at the
         smallest fitting rung; F_ANCH rows retry at bigger rungs, and
         whatever remains flagged is recomputed exactly on the host."""
+        if self.sharded and pidx.n_ranges:
+            # as the JAX engine does with its range-sharded parts: the
+            # rows are the same either way
+            pidx.drop_device()
         if pidx.host_only:
             self.n_host_only_parts += 1
             logger.warning("part has no device index; computed by the "
                            "exact host path")
             t0 = time.time()
             for g in self.groups:
-                self._host_fix(g, pidx, list(range(len(g.qids))))
+                self._host_fix(g, pidx, list(range(len(g.qids))), progress)
             self.phase_s["host_fix"] += time.time() - t0
             return
 
+        self._replicate(pidx)
         for g in self.groups:
             t0 = time.time()
             qrank = np.full(self.lanes, -1, np.int32)
@@ -1093,8 +1285,6 @@ class DeviceOverlapEngine:
                 qrank[r] = pidx.name_rank.get(qname, -1)
                 if self.cfg.ava:
                     qbisect[r] = bisect_left(pidx.sorted_names, qname)
-            qrank_d = torch.from_numpy(qrank).to(self.device)
-            qbisect_d = torch.from_numpy(qbisect).to(self.device)
             cnt, left, occ = _count_expanded(
                 pidx.ih, g.qh, g.qcnt, g.n_slots, pidx.mid_occ,
                 mcrop=g.count_crop())
@@ -1108,24 +1298,23 @@ class DeviceOverlapEngine:
             nq_max = int(nq[live].max()) if live.any() else 0
             rung = next((a for a in self.a_ladder if a >= nq_max), None)
             forced = []
+            qvalid = None
             if rung is None:
                 rung = self.a_ladder[-1]
                 forced = [r for r in range(len(g.qids))
                           if live[r] and nq[r] > rung]
-            qvalid = g.qvalid
-            if forced:
-                qvalid = qvalid.clone()
+                qvalid = g.qvalid.cpu().numpy().copy()
                 qvalid[forced] = 0
-            small, full = self._step_group(g, pidx, qrank_d, qbisect_d,
-                                           qvalid, rung, left, occ)
-            small_np = small.cpu().numpy()
+            smalls, fulls = self._step_group(g, pidx, qrank, qbisect,
+                                             qvalid, rung, left, occ)
+            smalls_np = [s.cpu().numpy() for s in smalls]
             self.phase_s["step"] += time.time() - t0
 
             t0 = time.time()
-            flags_np, ev_rows = self._unpack_pull(small_np, full)
+            flags_np, ev_rows = self._unpack_pull(smalls_np, fulls)
             self.phase_s["pull"] += time.time() - t0
             bad = self._commit_rows(g, list(range(len(g.qids))), flags_np,
-                                    ev_rows, forced=forced)
+                                    ev_rows, progress, forced=forced)
             self.flag_counts[F_ANCH] += len(forced)
             # F_ANCH safety net: the count pass sized the rung, so this
             # fires only on a count/step disagreement
@@ -1136,14 +1325,14 @@ class DeviceOverlapEngine:
                 if not retry:
                     break
                 bad = [r for r in bad if r not in retry] + self._retry(
-                    g, pidx, qrank_d, qbisect_d, retry, flags_np, ev_rows,
-                    A, left, occ)
+                    g, pidx, qrank, qbisect, retry, flags_np, ev_rows, A,
+                    left, occ, progress)
             for r in bad:
                 if flags_np[r]:
                     self.flag_counts[int(flags_np[r])] += 1
             if bad:
                 t0 = time.time()
-                self._host_fix(g, pidx, bad)
+                self._host_fix(g, pidx, bad, progress)
                 self.phase_s["host_fix"] += time.time() - t0
 
     def _ensure_host_state(self, g):
@@ -1157,9 +1346,11 @@ class DeviceOverlapEngine:
                 sk = g.host_sketch_lists(self.k, self.w, self.queries)[r]
                 self.host_state[qi] = oh.ReadState(len(sk[0]))
 
-    def _host_fix(self, g, pidx, rows):
+    def _host_fix(self, g, pidx, rows, progress):
         """Exact host recompute of this part's update for flagged rows
-        (their device state was left untouched by the step)."""
+        (their device state was left untouched by the step). The shards'
+        accumulators are pulled to the host, and each shard that holds a
+        fixed row gets its lanes back on its own device."""
         self._ensure_host_state(g)
         cfg = self.cfg
         m = cfg.map
@@ -1175,11 +1366,9 @@ class DeviceOverlapEngine:
                 "min_ratio": cfg.flt.min_ratio,
                 "max_overhang": cfg.flt.max_overhang}
         sk = g.host_sketch_lists(self.k, self.w, self.queries)
-        lam = g.lam.cpu().numpy().copy()
-        lam2 = g.lam2.cpu().numpy().copy()
-        avgk = g.avgk_set.cpu().numpy().copy()
-        avgkv = g.avgk_val.cpu().numpy().copy() if g.hpc else None
-        mcn = g.m_cnts.cpu().numpy().copy()
+        lam, lam2, avgk, mcn = (g.pull(n) for n in ("lam", "lam2",
+                                                     "avgk_set", "m_cnts"))
+        avgkv = g.pull("avgk_val") if g.hpc else None
         n_exp_np = g.n_exp.cpu().numpy()
         mask = np.zeros(self.lanes, np.int32)
         for r in rows:
@@ -1219,6 +1408,8 @@ class DeviceOverlapEngine:
             for s, e in state.coords:
                 self.events[qi].append(int(np.uint32(s)))
                 self.events[qi].append(int(np.uint32(e)))
+            if progress:
+                progress(qi)
             if qi in self.host_state:
                 continue  # state lives host-side permanently
             lam[r] = state.lam
@@ -1230,26 +1421,28 @@ class DeviceOverlapEngine:
             upto = min(len(state.m_cnts), g.M2)
             mcn[r, :upto] = state.m_cnts[:upto].astype(np.int32)
             mask[r] = 1
-        if mask.any():
-            dev = self.device
-            (g.lam, g.lam2, g.avgk_set, g.m_cnts) = _apply_fix(
-                g.lam, g.lam2, g.avgk_set, g.m_cnts,
-                torch.from_numpy(mask).to(dev), torch.from_numpy(lam).to(dev),
-                torch.from_numpy(lam2).to(dev),
-                torch.from_numpy(avgk).to(dev), torch.from_numpy(mcn).to(dev))
+        for sh in g.shards:
+            if not mask[sh.lo:sh.hi].any():
+                continue
+            (sh.lam, sh.lam2, sh.avgk_set, sh.m_cnts) = _apply_fix(
+                sh.lam, sh.lam2, sh.avgk_set, sh.m_cnts, sh.put(mask),
+                sh.put(lam), sh.put(lam2), sh.put(avgk), sh.put(mcn))
             if g.hpc:
-                g.avgk_val = torch.from_numpy(avgkv).to(dev)
+                sh.avgk_val = sh.put(avgkv)
 
     def _finalize(self):
         cfg = self.cfg
         rows = [None] * len(self.queries)
         for g in self.groups:
             self._ensure_host_state(g)
-            lam, lam2, n_match, _ssum = (
-                t.cpu().numpy() for t in _finalize_group(
-                    g.lam, g.lam2, g.m_cnts, g.n_exp))
+            # every shard's reduction is launched before the first pull
+            outs = [_finalize_group(sh.lam, sh.lam2, sh.m_cnts, sh.n_exp)
+                    for sh in g.shards]
+            lam, lam2, n_match = (
+                np.concatenate([o[i].cpu().numpy() for o in outs])
+                for i in range(3))
             n_exp = g.n_exp.cpu().numpy()
-            avgkv = g.avgk_val.cpu().numpy() if g.hpc else None
+            avgkv = g.pull("avgk_val") if g.hpc else None
             for r, qi in enumerate(g.qids):
                 q = self.queries[qi]
                 if qi in self.host_state:
@@ -1277,13 +1470,20 @@ class DeviceOverlapEngine:
 
 
 def overlap_run_device2(target_iter, query_reads, cfg: OverlapConfig,
-                        device="cuda", stats=None, parts=None):
+                        device="cuda", stats=None, parts=None,
+                        progress=None, devices=None,
+                        lanes_per_shard=GROUP_Q):
     """Device-resident overlap run -> 9-column TSV rows (row-identical
     to overlap_host.overlap_run). stats: optional dict that receives
     the engine's counters (DeviceOverlapEngine.stats). parts:
-    pre-grouped part read-lists (the -d prefetch path)."""
-    eng = DeviceOverlapEngine(cfg, query_reads, device=device)
-    rows = eng.run(target_iter, parts=parts)
+    pre-grouped part read-lists (the -d prefetch path). progress:
+    called with the query index once per row and part. devices /
+    lanes_per_shard: the query lanes sharded over a device list
+    (DeviceOverlapEngine)."""
+    eng = DeviceOverlapEngine(cfg, query_reads, device=device,
+                              devices=devices,
+                              lanes_per_shard=lanes_per_shard)
+    rows = eng.run(target_iter, parts=parts, progress=progress)
     if stats is not None:
         stats.update(eng.stats())
     if eng.n_host_fallback:

@@ -6,11 +6,13 @@ int64 above) and HPC with k <= 15. A configuration it rejects (HPC with
 k > 15: NotImplementedError) runs the batched-chainer path, as in the
 JAX package: the host spec (overlap_host.overlap_run) with DeviceChainer
 as its chain_many hook, so the chain-DP fill runs as kernel B2 on the
-device and everything else on the host. The dispatch follows the
-configuration alone: the JAX package's LONGQC_OVERLAP_ENGINE override
-(v1 / v2) is not ported.
+device and everything else on the host. LONGQC_OVERLAP_ENGINE
+overrides the dispatch as in the JAX package: `v1` runs the batched
+chainer on any configuration, `v2` raises where the device engine
+rejects the configuration instead of falling back.
 """
 
+import os
 from logging import getLogger
 
 import numpy as np
@@ -115,31 +117,40 @@ class DeviceChainer:
 
 def overlap_run_device(target_iter, query_reads, cfg: OverlapConfig,
                        device="cuda", stats=None, parts=None,
-                       index_cache=None):
+                       index_cache=None, progress=None):
     """Device-path overlap run -> 9-column TSV rows.
 
     The device-resident engine for every configuration it takes; the
     batched-chainer path for the ones it rejects (HPC with k > 15),
     logged and recorded in stats (`engine`, and the chainer's row and
-    call counts).
+    call counts). LONGQC_OVERLAP_ENGINE=v1 runs the batched chainer on
+    any configuration; =v2 re-raises the device engine's
+    NotImplementedError instead of falling back.
     parts: pre-grouped part read-lists (the -d prefetch path).
     index_cache: npz path prefix of the host index cache; only the
     batched-chainer path reads it (the device engine builds its index
     on the device each part).
+    progress: called with the query index once per row and part.
     """
     stats = {} if stats is None else stats
-    try:
-        rows = overlap_run_device2(target_iter, query_reads, cfg,
-                                   device=device, stats=stats, parts=parts)
-        stats["engine"] = "device"
-        return rows
-    except NotImplementedError as e:
-        logger.info("device engine unavailable for this config (%s); "
-                    "using the batched-chainer path", e)
+    choice = os.environ.get("LONGQC_OVERLAP_ENGINE", "")
+    if choice != "v1":
+        try:
+            rows = overlap_run_device2(target_iter, query_reads, cfg,
+                                       device=device, stats=stats,
+                                       parts=parts, progress=progress)
+            stats["engine"] = "device"
+            return rows
+        except NotImplementedError as e:
+            if choice == "v2":
+                raise
+            logger.info("device engine unavailable for this config (%s); "
+                        "using the batched-chainer path", e)
     chainer = DeviceChainer(device=device)
     rows = oh.overlap_run(target_iter, query_reads, cfg,
                           chain_many=chainer, parts=parts,
-                          index_cache=index_cache, device=device)
+                          index_cache=index_cache, device=device,
+                          progress=progress)
     stats.update(engine="batched_chainer", **chainer.stats())
     logger.info("batched chainer: %d B2 calls, %d device rows, %d host "
                 "fallbacks", chainer.n_calls, chainer.n_device,

@@ -619,7 +619,7 @@ def iter_index_parts(target_iter, batch_size, mini_batch_size=50_000_000):
 
 def overlap_run(target_iter, query_reads, cfg: OverlapConfig,
                 chain_many=None, parts=None, index_cache=None,
-                return_states=False, device="cuda"):
+                return_states=False, device="cuda", progress=None):
     """Full engine run -> list of 9-column TSV row strings
     (cf. minimap2-coverage.c:545-617).
 
@@ -638,6 +638,7 @@ def overlap_run(target_iter, query_reads, cfg: OverlapConfig,
     sketches (overlap_run_with_states).
     device: where the tensor sketch runs (the rest is host numpy); the
     card unless the caller asks for the CPU.
+    progress: called with the query index once per query and part.
     """
     k, w = cfg.index.k, cfg.index.w
     hpc = cfg.index.is_hpc
@@ -690,6 +691,8 @@ def overlap_run(target_iter, query_reads, cfg: OverlapConfig,
                                   m.min_score_good, fopt, covt=cfg.covt)
                 filter_redundant_coords(states[qi], cv,
                                         cfg.flt.min_coverage)
+                if progress:
+                    progress(qi)
 
     # final per-read rows (minimap2-coverage.c:545-617)
     rows = []

@@ -23,7 +23,8 @@ for m in mods:
 for m in ("io.sampling", "io.stats", "ops.sdust", "ops.gc", "ops.adapter",
           "ops.distfit", "engine.masking", "engine.pipeline",
           "report.coverage", "report.plots", "report.html", "platform",
-          "platform.rs", "platform.sequel", "platform.nanopore"):
+          "platform.rs", "platform.sequel", "platform.nanopore",
+          "parallel", "parallel.mesh"):
     assert "longqc_tpu_torch." + m in mods, m
 assert "jax" not in sys.modules, "jax imported"
 assert not any(m == "longqc_tpu" or m.startswith("longqc_tpu.")
@@ -60,6 +61,22 @@ def test_import_leaves_jax_out_and_builds_nothing():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 40
+
+
+def test_pyproject_lists_every_package_of_the_port():
+    """An installed port (pip install .) holds every package directory
+    of longqc_tpu_torch."""
+    import os
+    import tomllib
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "pyproject.toml"), "rb") as f:
+        listed = set(tomllib.load(f)["tool"]["setuptools"]["packages"])
+    dirs = {os.path.relpath(d, root).replace(os.sep, ".")
+            for d, _, files in os.walk(os.path.join(root, "longqc_tpu_torch"))
+            if "__init__.py" in files}
+    assert {"longqc_tpu_torch.parallel", "longqc_tpu_torch.platform"} <= dirs
+    assert dirs <= listed, sorted(dirs - listed)
 
 
 def test_engine_never_drops_to_cpu_on_its_own():

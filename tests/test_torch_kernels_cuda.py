@@ -325,3 +325,62 @@ def test_batched_chainer_card_equals_cpu_run(tmp_path, dev, capsys):
     assert main(flags + [tf, qf]) == 0
     assert capsys.readouterr().out == want
     assert _ext.LAUNCHES["chain"] >= 1
+
+
+def _mesh_inputs():
+    """tests/test_multichip.py's input (tests/test_torch_mesh.py)."""
+    from longqc_tpu_torch.config import FltOpt, IndexOpt, MapOpt, \
+        OverlapConfig
+    from util_synth import make_genome, sample_reads
+
+    rng = np.random.RandomState(5)
+    reads = sample_reads(rng, make_genome(rng, 20000), 90, min_len=500,
+                         max_len=1500, err=0.12, junk_frac=0.1)
+    cfg = OverlapConfig(index=IndexOpt(k=12, w=5, batch_size=30000),
+                        map=MapOpt(min_score_med=80, min_score_good=160),
+                        flt=FltOpt(min_ovlp=0))
+    return reads, cfg
+
+
+def test_sharded_engine_card_equals_cpu_run(dev):
+    """The query lanes over ["cuda:0"] * 2 (one index copy per part) and,
+    where the machine has two cards, over ["cuda:0", "cuda:1"] (two),
+    against the CPU run of the same shards; 4 parts."""
+    from longqc_tpu_torch.engine.device_overlap import DeviceOverlapEngine
+    from longqc_tpu_torch.ops import _ext
+
+    reads, cfg = _mesh_inputs()
+    queries = reads[:24]
+    runs = [(["cpu"] * 2, 1), (["cuda:0"] * 2, 1)]
+    if torch.cuda.device_count() >= 2:
+        runs.append((["cuda:0", "cuda:1"], 2))
+    got = []
+    for devices, copies in runs:
+        _ext.reset_launches()
+        eng = DeviceOverlapEngine(cfg, queries, devices=devices,
+                                  lanes_per_shard=8)
+        got.append(eng.run(list(reads)))
+        st = eng.stats()
+        n_parts = len(st["part_ranges"])
+        assert n_parts >= 3 and st["parts_packed_aside"] == n_parts
+        assert st["index_copies"] == copies * n_parts
+        if devices[0] != "cpu":
+            assert _ext.LAUNCHES["chain"] == 2 * st["device_calls"] > 0
+    assert all(rows == got[0] for rows in got[1:])
+
+
+def test_part_pipeline_card_equals_cpu_run(dev):
+    """A run of 4 parts on one card against its CPU run, B1-B4
+    launched."""
+    from longqc_tpu_torch.engine.device_overlap import overlap_run_device2
+    from longqc_tpu_torch.ops import _ext
+
+    reads, cfg = _mesh_inputs()
+    want = overlap_run_device2(list(reads), reads[:24], cfg, device="cpu")
+    _ext.reset_launches()
+    stats = {}
+    assert overlap_run_device2(iter(reads), reads[:24], cfg,
+                               stats=stats) == want
+    assert len(stats["part_ranges"]) >= 3
+    for name in ("sketch", "chain", "peak", "minrank"):
+        assert _ext.LAUNCHES[name] >= 1
