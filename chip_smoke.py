@@ -14,8 +14,8 @@ prints the final result line):
      longqc_tpu_torch/csrc, the port's FASTA/FASTQ reader
      (csrc/fastx_native.cpp, g++ -O3) and its sdust recursion
      (csrc/sdust_native.cpp); the registers, stack frame and spills of
-     every B1 instance (one more `nvcc -Xptxas -v` of csrc/sketch.cu
-     alone)
+     every B1 and B5 instance (one more `nvcc -Xptxas -v` each of
+     csrc/sketch.cu and csrc/extend.cu alone, beside the build)
   3. B1-B4 against their plain PyTorch versions on the card, at
      production shapes, with exact equality (tolerance 0: all outputs
      are integers): B1 on 256 x 8192 and 32 x 65536 tiles of reads with
@@ -52,7 +52,8 @@ prints the final result line):
   6. B5, the banded extension (ops/extend.extz_batch), on 8,192 pairs
      of 500-4,000 bp (10 Mbp genome, err 0.12, 20% unrelated pairs so
      Z-drop fires; zdrop=400, scores 2/-4/4/2, extd adds 24/1) at W=63
-     (the one-warp body) and W=64 and 255 (the wide body), and on the
+     and 31 (the one-warp wavefront, two and one columns a lane) and
+     W=64 and 255 (the wide body), and on the
      first 1,024 pairs at W=5,000, past every pair, where the wide body
      clamps each pair's band: extz and extd kernels against their plain
      version (the full band) on the same tensors, all eight outputs
@@ -73,7 +74,8 @@ prints the final result line):
   9. a part of the reference's size through cli.main at phase 5's
      settings (default -I 4G, so one part): 230,000 target reads of
      1-8 kbp (~1.03 Gbp, ~9.4x of a 110 Mbp genome), err 0.12, 5,000
-     queries; the part must take the hash-range build on the card (0
+     queries (made by a side process, on the CPU, from the start of the
+     script on); the part must take the hash-range build on the card (0
      host-only parts, 1 hash-range part), host-fixed rows <= 5%; then
      one more build_device_index over the same part, checked apart from
      the merge code: ih non-decreasing, its real entries the sum of the
@@ -97,7 +99,8 @@ prints the final result line):
      overlap's phase_s, host-fixed rows and peak device memory printed.
      10a: the 5' adapter statistics (and the 3' ones, when they pass
      the identity threshold) equal a cut_adapter run with CPU tensors on
-     the same reads; the mask stage and the adapter DP run once more,
+     the same reads (a side process beside phases 10a-14, checked after
+     phase 14); the mask stage and the adapter DP run once more,
      each alone on the card and timed, the mask rows equal to the run's.
      10b: every control-derived sampled read is marked in the spike-in
      table
@@ -144,7 +147,8 @@ prints the final result line):
      30M; peak device memory at most 1.1 x phase 5's (one device build
      live at a time); the parts, phase_s (`index`, `part_wait`, `step`)
      and the wall printed
-Kernel launch counts are reset just before each path (phase 4's three
+The side processes use the CPU only and are stopped when the script
+stops. Kernel launch counts are reset just before each path (phase 4's three
 runs, phases 5, 6, 7, 8, 9, 10a, 10b, 11, phase 12's two batched-chainer
 runs, 14a, 14b) and read just after it. Each
 kernel's bound is the larger of its bytes (each input read once, each
@@ -225,6 +229,34 @@ def log(*a):
     print(*a, flush=True)
 
 
+# side processes (CPU only, beside the card's phases): name -> function
+# of the work directory; `python3 chip_smoke.py --side NAME WORKDIR`
+SIDE = {}
+_SIDE_PROCS = []
+
+
+def side_start(name, workdir):
+    """Start SIDE[name](workdir) in a process of its own."""
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--side", name, workdir])
+    _SIDE_PROCS.append(proc)
+    return proc
+
+
+def side_wait(proc, what):
+    if proc.wait() != 0:
+        raise AssertionError("%s: its side process exited %d"
+                             % (what, proc.returncode))
+
+
+def side_stop():
+    """Stop every side process still running (after a failure)."""
+    for proc in _SIDE_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -287,16 +319,16 @@ def b1_variant(symbol):
             + ("_u64" if u64 else ""))
 
 
-def sketch_resources():
-    """Registers, stack frame and spill bytes of every B1 instance, from
-    `nvcc -Xptxas -v` on csrc/sketch.cu alone with the extension's
-    flags. {(variant, ring slots): {...}}, printed."""
+def ptxas_resources(path, key):
+    """Registers, stack frame and spill bytes of every kernel instance
+    of one CUDA source, from `nvcc -Xptxas -v` on that file alone with
+    the extension's flags: {key(symbol): {...}} for each symbol that
+    `key` maps (to None: left out)."""
     from longqc_tpu_torch.ops import _ext
-    src = os.path.join(_ext.CSRC, "sketch.cu")
     with tempfile.TemporaryDirectory(prefix="longqc_ptxas_") as tmp:
         out = subprocess.run(
-            [_ext.nvcc_path(), "-std=c++17", "-Xptxas=-v", "-c", src, "-o",
-             os.path.join(tmp, "sketch.o")] + _ext.CUDA_FLAGS,
+            [_ext.nvcc_path(), "-std=c++17", "-Xptxas=-v", "-c", path, "-o",
+             os.path.join(tmp, "k.o")] + _ext.CUDA_FLAGS,
             capture_output=True, text=True)
     if out.returncode != 0:
         raise AssertionError("nvcc -Xptxas -v failed: %s" % out.stderr[-2000:])
@@ -304,11 +336,9 @@ def sketch_resources():
     for line in out.stderr.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            sym = m.group(1)
-            wm = re.search(r"Li(\d+)E", sym)
-            cur = (b1_variant(sym), int(wm.group(1))) if wm else None
+            cur = key(m.group(1))
             continue
-        if cur is None or cur[0] is None:
+        if cur is None:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -319,14 +349,61 @@ def sketch_resources():
         m = re.search(r"Used (\d+) registers", line)
         if m:
             res.setdefault(cur, {})["registers"] = int(m.group(1))
-    if len(res) != 12 or not all(len(v) == 4 for v in res.values()):
-        raise AssertionError("expected 12 B1 instances in ptxas' output, "
-                             "got %s" % sorted(res))
-    for (name, wm), v in sorted(res.items()):
-        log("B1 %s, %d ring slots: %d registers, %d bytes stack frame, "
-            "spills %d / %d bytes (stores / loads)"
-            % (name, wm, v["registers"], v["stack"], v["spill_stores"],
-               v["spill_loads"]))
+    return res
+
+
+def log_resources(what, res, n):
+    """Print each instance's resources; fail unless there are n, each
+    with all four numbers."""
+    if len(res) != n or not all(len(v) == 4 for v in res.values()):
+        raise AssertionError("expected %d %s instances in ptxas' output, "
+                             "got %s" % (n, what, sorted(res)))
+    for (name, arg), v in sorted(res.items()):
+        log("%s %s, %s: %d registers, %d bytes stack frame, spills %d / %d "
+            "bytes (stores / loads)"
+            % (what, name, arg, v["registers"], v["stack"],
+               v["spill_stores"], v["spill_loads"]))
+
+
+def sketch_resources():
+    """Every B1 instance's resources: {(variant, ring slots): {...}},
+    printed."""
+    from longqc_tpu_torch.ops import _ext
+
+    def key(sym):
+        wm = re.search(r"Li(\d+)E", sym)
+        name = b1_variant(sym)
+        return (name, int(wm.group(1))) if wm and name else None
+
+    res = ptxas_resources(os.path.join(_ext.CSRC, "sketch.cu"), key)
+    log_resources("B1", {(n, "%d ring slots" % wm): v
+                         for (n, wm), v in res.items()}, 12)
+    return res
+
+
+def extend_variant(symbol):
+    """(LAUNCHES name, instance) of a B5 kernel symbol (mangled): the
+    one-warp body `lq_extend_kernel<CPL, DUAL>` -> ("extz" / "extd",
+    "CPL columns a lane"), the wide body -> ("extz_wide" / "extd_wide",
+    "a block a pair"); None for any other symbol."""
+    m = re.search(r"lq_extend_kernelILi(\d+)ELb([01])E", symbol)
+    if m:
+        return ("extd" if m.group(2) == "1" else "extz",
+                "%s columns a lane" % m.group(1))
+    m = re.search(r"lq_extend_wide_kernelILb([01])E", symbol)
+    if m:
+        return ("extd_wide" if m.group(1) == "1" else "extz_wide",
+                "a block a pair")
+    return None
+
+
+def extend_resources():
+    """Every B5 instance's resources (the one-warp body at one and two
+    columns a lane, the wide body; extz and extd each), printed."""
+    from longqc_tpu_torch.ops import _ext
+    res = ptxas_resources(os.path.join(_ext.CSRC, "extend.cu"),
+                          extend_variant)
+    log_resources("B5", res, 6)
     return res
 
 
@@ -948,9 +1025,10 @@ def extension_pairs(rng, genome, n, lo, hi, err, unrelated):
     return pad(qs) + pad(ts)
 
 
-# (W, pairs) of phase 6: the one-warp body at W = 63, the wide body at
-# W = 64 (the JAX default), 255 and 5,000 (past every pair: clamped)
-EXT_RUNS = ((63, 8192), (64, 8192), (255, 8192), (5000, 1024))
+# (W, pairs) of phase 6: the one-warp body at W = 63 (two columns a
+# lane) and 31 (one), the wide body at W = 64 (the JAX default), 255 and
+# 5,000 (past every pair: clamped)
+EXT_RUNS = ((63, 8192), (31, 8192), (64, 8192), (255, 8192), (5000, 1024))
 
 
 def check_extend(dev, zdrop=400):
@@ -1227,19 +1305,14 @@ def sorted_triples(arrays):
     return h[order], r[order], p[order]
 
 
-def big_part_run(dev, workdir):
-    """Phase 9: mmcov through cli.main on a >= 1 Gbp part, then one more
-    build_device_index over the same part, checked apart from the merge
-    code. Returns the mmcov run's launch counts."""
+def big_part_data(workdir):
+    """Phase 9's part (BIG_RUN) written to workdir: big_targets.fa and
+    big_queries.fq (its first N_QUERIES reads); the seconds taken in
+    big_data.json. Run in a side process from the start of the script
+    (`--side big-data`), beside the card's phases 2-8."""
     import numpy as np
-    import torch
     from util_synth import make_genome_fast, sample_reads_fast
-    from longqc_tpu_torch import cli
-    from longqc_tpu_torch.engine import device_index as di
-    from longqc_tpu_torch.ops import _ext
-
     run = BIG_RUN
-    phase, k, w = run["phase"], run["k"], run["w"]
     t = time.time()
     rng = np.random.RandomState(run["seed"])
     genome = make_genome_fast(rng, run["genome"])
@@ -1248,18 +1321,46 @@ def big_part_run(dev, workdir):
                                 max_len=run["max_len"], err=run["err"],
                                 junk_frac=run["junk"])
     del genome
-    queries = targets[:N_QUERIES]
+    write_fasta(os.path.join(workdir, "big_targets.fa"), targets)
+    write_fastq(os.path.join(workdir, "big_queries.fq"),
+                targets[:N_QUERIES])
+    with open(os.path.join(workdir, "big_data.json"), "w") as f:
+        json.dump({"seconds": time.time() - t}, f)
+
+
+def big_part_run(dev, workdir, data_proc):
+    """Phase 9: mmcov through cli.main on a >= 1 Gbp part (made by the
+    side process data_proc), then one more build_device_index over the
+    same part, checked apart from the merge code. Returns the mmcov
+    run's launch counts."""
+    import numpy as np
+    import torch
+    from longqc_tpu_torch import cli
+    from longqc_tpu_torch.engine import device_index as di
+    from longqc_tpu_torch.io.fastx import iter_fastx
+    from longqc_tpu_torch.ops import _ext
+
+    run = BIG_RUN
+    phase, k, w = run["phase"], run["k"], run["w"]
+    t = time.time()
+    side_wait(data_proc, "%s's data" % phase)
     tpath = os.path.join(workdir, "big_targets.fa")
     qpath = os.path.join(workdir, "big_queries.fq")
     stats_path = os.path.join(workdir, "big_stats.json")
-    write_fasta(tpath, targets)
-    write_fastq(qpath, queries)
+    with open(os.path.join(workdir, "big_data.json")) as f:
+        made_s = json.load(f)["seconds"]
+    waited = time.time() - t
+    targets = [[n, sq, ""] for n, sq, _q in iter_fastx(tpath)]
     tbp = sum(len(r[1]) for r in targets)
     log("%s data: %d targets of %d-%d bp (%d bp, %.2fx of %d bp), err "
-        "%.2f, junk %.2f, %d queries, made in %.1f s"
-        % (phase, run["n_targets"], run["min_len"], run["max_len"], tbp,
+        "%.2f, junk %.2f, %d queries, made in %.1f s by a side process "
+        "beside phases 2-8 (waited %.1f s; read back in %.1f s)"
+        % (phase, len(targets), run["min_len"], run["max_len"], tbp,
            tbp / run["genome"], run["genome"], run["err"], run["junk"],
-           N_QUERIES, time.time() - t))
+           N_QUERIES, made_s, waited, time.time() - t - waited))
+    if len(targets) != run["n_targets"]:
+        raise AssertionError("%s: %d targets read back, %d written"
+                             % (phase, len(targets), run["n_targets"]))
     if tbp < run["min_bp"]:
         raise AssertionError("%s: the part holds %d bp, under %d"
                              % (phase, tbp, run["min_bp"]))
@@ -1536,16 +1637,16 @@ def sampleqc_run(dev, workdir, tag, reads, preset, missing, extra=()):
 
 def sampleqc_ont(dev, workdir, targets, missing):
     """Phase 10a: ont-ligation sampleqc on phase 5's target reads, the
-    5' adapter planted on N_ADAPTER of them; the adapter statistics
-    against cut_adapter with CPU tensors on the same reads; then the
-    mask stage and the adapter DP once more, each alone on the card (in
-    the run the mask stage shares the interpreter with the adapter
-    search), the mask rows against the run's table."""
-    import numpy as np
+    5' adapter planted on N_ADAPTER of them; cut_adapter with CPU
+    tensors on the same reads started in a side process (its statistics
+    checked by check_adapter_recheck); then the mask stage and the
+    adapter DP once more, each alone on the card (in the run the mask
+    stage shares the interpreter with the adapter search), the mask rows
+    against the run's table. Returns (launches, the re-check's handle)."""
     import torch
     from longqc_tpu_torch import config as C
     from longqc_tpu_torch.engine.masking import mask_table_rows
-    from longqc_tpu_torch.ops.adapter import adapter_dists, cut_adapter
+    from longqc_tpu_torch.ops.adapter import adapter_dists
 
     preset = C.PRESETS["ont-ligation"]
     step = len(targets) // N_ADAPTER
@@ -1554,27 +1655,11 @@ def sampleqc_ont(dev, workdir, targets, missing):
              for i, (n, s, q) in enumerate(targets)]
     launches, out, qc, stats, _ = sampleqc_run(dev, workdir, "10a", reads,
                                                "ont-ligation", missing)
-    t = time.time()
-    t5, t3 = cut_adapter([list(r) for r in reads], adp_t=preset.adp5,
-                         adp_b=preset.adp3,
-                         th=C.ADAPTER_IDENTITY_THRESHOLD,
-                         length=C.ADAPTER_SEARCH_LENGTH, device="cpu")
-    got5 = qc.get("Stats_for_adapter5", {})
-    got3 = qc.get("Stats_for_adapter3", {})
-    want5 = {"Num_of_trimmed_reads_5": t5[1], "Max_identity_adp5": t5[0],
-             "Average_position_from_5_end": float(np.mean(t5[2]))}
-    log("phase 10a adapters: 5' %s, 3' %s; cut_adapter on CPU tensors: "
-        "5' %s, 3' trimmed %d, max identity %.4f (%.1f s)" % (
-            json.dumps(got5), json.dumps(got3), json.dumps(want5), t3[1],
-            t3[0], time.time() - t))
-    if got5 != want5 or t5[1] < N_ADAPTER:
-        raise AssertionError("phase 10a: the 5' adapter statistics differ "
-                             "from cut_adapter's on CPU tensors")
-    if t3[0] >= C.ADAPTER_IDENTITY_THRESHOLD and (
-            got3.get("Num_of_trimmed_reads_3") != t3[1]
-            or got3.get("Max_identity_adp3") != t3[0]):
-        raise AssertionError("phase 10a: the 3' adapter statistics differ "
-                             "from cut_adapter's on CPU tensors")
+    # cut_adapter on CPU tensors over the same reads (the run's input
+    # file), in a side process beside phases 10a-14; checked at the end
+    recheck = (side_start("adapters", workdir),
+               qc.get("Stats_for_adapter5", {}),
+               qc.get("Stats_for_adapter3", {}))
 
     torch.cuda.synchronize()
     t = time.time()
@@ -1595,7 +1680,56 @@ def sampleqc_ont(dev, workdir, targets, missing):
         if f.read().splitlines() != rows:
             raise AssertionError("phase 10a: the mask stage alone gives "
                                  "other rows than the run")
-    return launches
+    return launches, recheck
+
+
+def adapter_recheck(workdir):
+    """cut_adapter on CPU tensors over phase 10a's input reads ->
+    adapters.json (`--side adapters`)."""
+    import numpy as np
+    import torch
+    from longqc_tpu_torch import config as C
+    from longqc_tpu_torch.io.fastx import iter_fastx
+    from longqc_tpu_torch.ops.adapter import cut_adapter
+    torch.set_num_threads(2)
+    preset = C.PRESETS["ont-ligation"]
+    t = time.time()
+    reads = [[n, sq, q] for n, sq, q in
+             iter_fastx(os.path.join(workdir, "sampleqc_10a.fq"))]
+    t5, t3 = cut_adapter(reads, adp_t=preset.adp5, adp_b=preset.adp3,
+                         th=C.ADAPTER_IDENTITY_THRESHOLD,
+                         length=C.ADAPTER_SEARCH_LENGTH, device="cpu")
+    with open(os.path.join(workdir, "adapters.json"), "w") as f:
+        json.dump({"t5": [float(t5[0]), int(t5[1]), float(np.mean(t5[2]))],
+                   "t3": [float(t3[0]), int(t3[1])],
+                   "seconds": time.time() - t}, f)
+
+
+def check_adapter_recheck(workdir, recheck):
+    """Phase 10a's adapter statistics against the side process's
+    cut_adapter on CPU tensors."""
+    from longqc_tpu_torch import config as C
+    proc, got5, got3 = recheck
+    t = time.time()
+    side_wait(proc, "phase 10a's cut_adapter on CPU tensors")
+    with open(os.path.join(workdir, "adapters.json")) as f:
+        r = json.load(f)
+    (ident5, n5, pos5), (ident3, n3) = r["t5"], r["t3"]
+    want5 = {"Num_of_trimmed_reads_5": n5, "Max_identity_adp5": ident5,
+             "Average_position_from_5_end": pos5}
+    log("phase 10a adapters: 5' %s, 3' %s; cut_adapter on CPU tensors: "
+        "5' %s, 3' trimmed %d, max identity %.4f (%.1f s in a side "
+        "process beside phases 10a-14, waited %.1f s)" % (
+            json.dumps(got5), json.dumps(got3), json.dumps(want5), n3,
+            ident3, r["seconds"], time.time() - t))
+    if got5 != want5 or n5 < N_ADAPTER:
+        raise AssertionError("phase 10a: the 5' adapter statistics differ "
+                             "from cut_adapter's on CPU tensors")
+    if ident3 >= C.ADAPTER_IDENTITY_THRESHOLD and (
+            got3.get("Num_of_trimmed_reads_3") != n3
+            or got3.get("Max_identity_adp3") != ident3):
+        raise AssertionError("phase 10a: the 3' adapter statistics differ "
+                             "from cut_adapter's on CPU tensors")
 
 
 def sampleqc_pb(dev, workdir, queries, missing):
@@ -2278,12 +2412,32 @@ def main():
                        text=True).stdout.splitlines()[0]))
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    # phase 9's part is made by a side process from here on
+    workdir = tempfile.mkdtemp(prefix="longqc_smoke_")
+    try:
+        run_phases(dev, workdir, side_start("big-data", workdir), t_all)
+    finally:
+        side_stop()
+        shutil.rmtree(workdir, ignore_errors=True)
 
-    # --- phase 2: build
+
+def run_phases(dev, workdir, big_data, t_all):
+    """Phases 2-14 and the result lines."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from longqc_tpu_torch.ops import _ext
+
+    # --- phase 2: build; every B1 and B5 instance's resources beside it
     t = time.time()
-    mod = _ext.lib(verbose=True)
-    log("built %s in %.1f s" % (os.path.relpath(mod.__file__, HERE),
-                                time.time() - t))
+    with ThreadPoolExecutor(2) as pool:
+        res_futures = (pool.submit(sketch_resources),
+                       pool.submit(extend_resources))
+        mod = _ext.lib(verbose=True)
+        log("built %s in %.1f s" % (os.path.relpath(mod.__file__, HERE),
+                                    time.time() - t))
+        resources, ext_resources = (f.result() for f in res_futures)
+    log("B1 and B5 resources read beside the build (%.1f s in all)"
+        % (time.time() - t))
     from longqc_tpu_torch.io import native
     if not native.available():
         raise AssertionError("the port's FASTA/FASTQ reader did not build: "
@@ -2296,9 +2450,6 @@ def main():
                              % sdust.NATIVE_BUILD["error"])
     log("built the sdust recursion: %s (%.2f s)" % (
         sdust.NATIVE_BUILD["cmd"], sdust.NATIVE_BUILD["build_s"]))
-    t = time.time()
-    resources = sketch_resources()
-    log("B1 resources read in %.1f s" % (time.time() - t))
 
     # --- phase 3: kernels vs plain versions
     t = time.time()
@@ -2315,64 +2466,61 @@ def main():
 
     # --- phase 5: realistic mmcov run; phase 6: B5; phase 7: HPC filter;
     # phase 8: the pb-hifi fast preset
-    workdir = tempfile.mkdtemp(prefix="longqc_smoke_")
-    try:
-        t = time.time()
-        launches, dev_ms, rungs5, targets5, rows5, peak5 = realistic_mmcov(
-            dev, workdir, ONT_RUN)
-        log("phase 5 %.1f s" % (time.time() - t))
-        t = time.time()
-        ext_res, ext_launches = check_extend(dev)
-        res.update(ext_res)
-        launches.update(ext_launches)
-        log("phase 6 %.1f s" % (time.time() - t))
-        t = time.time()
-        hpc_launches, rungs7, queries7 = hpc_filter_run(dev, workdir)
-        log("phase 7 %.1f s" % (time.time() - t))
-        t = time.time()
-        launches8, dev_ms8, rungs8, _, _, _ = realistic_mmcov(dev, workdir,
-                                                              HIFI_RUN)
-        log("phase 8 %.1f s" % (time.time() - t))
-        t = time.time()
-        launches9 = big_part_run(dev, workdir)
-        log("phase 9 %.1f s" % (time.time() - t))
-        # phase 10: the port's sampleqc on phase 5's and phase 7's reads
-        from longqc_tpu_torch.engine.pipeline import \
-            missing_report_modules
-        missing = missing_report_modules()
-        log("phase 10: the report stage's modules %s" % (
-            "are all installed" if not missing else
-            "missing here: %s (figures and HTML not drawn)"
-            % ", ".join(missing)))
-        t = time.time()
-        launches10a = sampleqc_ont(dev, workdir, targets5, missing)
-        targets12 = targets5[:N_DB_TARGETS]
-        log("phase 10a %.1f s" % (time.time() - t))
-        t = time.time()
-        launches10b = sampleqc_pb(dev, workdir, queries7, missing)
-        log("phase 10b %.1f s" % (time.time() - t))
-        # phase 11: sampleqc -d; phase 12: mmcov -d / -z and the batched
-        # chainer; phase 13: runqc
-        t = time.time()
-        launches11 = sampleqc_db(dev, workdir, queries7, missing)
-        log("phase 11 %.1f s" % (time.time() - t))
-        t = time.time()
-        launches12, launches12_v1 = mmcov_db_z_chainer(dev, workdir,
-                                                       targets12, queries7)
-        log("phase 12 %.1f s" % (time.time() - t))
-        t = time.time()
-        runqc_runs(workdir)
-        log("phase 13 %.1f s" % (time.time() - t))
-        # phase 14: the lanes over two shards, the part pipeline
-        t = time.time()
-        launches14a = two_shard_run(dev, targets5, rows5)
-        log("phase 14a %.1f s" % (time.time() - t))
-        t = time.time()
-        launches14b = part_pipeline_run(dev, workdir, targets5, peak5)
-        del targets5
-        log("phase 14b %.1f s" % (time.time() - t))
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    t = time.time()
+    launches, dev_ms, rungs5, targets5, rows5, peak5 = realistic_mmcov(
+        dev, workdir, ONT_RUN)
+    log("phase 5 %.1f s" % (time.time() - t))
+    t = time.time()
+    ext_res, ext_launches = check_extend(dev)
+    res.update(ext_res)
+    launches.update(ext_launches)
+    log("phase 6 %.1f s" % (time.time() - t))
+    t = time.time()
+    hpc_launches, rungs7, queries7 = hpc_filter_run(dev, workdir)
+    log("phase 7 %.1f s" % (time.time() - t))
+    t = time.time()
+    launches8, dev_ms8, rungs8, _, _, _ = realistic_mmcov(dev, workdir,
+                                                          HIFI_RUN)
+    log("phase 8 %.1f s" % (time.time() - t))
+    t = time.time()
+    launches9 = big_part_run(dev, workdir, big_data)
+    log("phase 9 %.1f s" % (time.time() - t))
+    # phase 10: the port's sampleqc on phase 5's and phase 7's reads
+    from longqc_tpu_torch.engine.pipeline import \
+        missing_report_modules
+    missing = missing_report_modules()
+    log("phase 10: the report stage's modules %s" % (
+        "are all installed" if not missing else
+        "missing here: %s (figures and HTML not drawn)"
+        % ", ".join(missing)))
+    t = time.time()
+    launches10a, recheck10a = sampleqc_ont(dev, workdir, targets5, missing)
+    targets12 = targets5[:N_DB_TARGETS]
+    log("phase 10a %.1f s" % (time.time() - t))
+    t = time.time()
+    launches10b = sampleqc_pb(dev, workdir, queries7, missing)
+    log("phase 10b %.1f s" % (time.time() - t))
+    # phase 11: sampleqc -d; phase 12: mmcov -d / -z and the batched
+    # chainer; phase 13: runqc
+    t = time.time()
+    launches11 = sampleqc_db(dev, workdir, queries7, missing)
+    log("phase 11 %.1f s" % (time.time() - t))
+    t = time.time()
+    launches12, launches12_v1 = mmcov_db_z_chainer(dev, workdir,
+                                                   targets12, queries7)
+    log("phase 12 %.1f s" % (time.time() - t))
+    t = time.time()
+    runqc_runs(workdir)
+    log("phase 13 %.1f s" % (time.time() - t))
+    # phase 14: the lanes over two shards, the part pipeline
+    t = time.time()
+    launches14a = two_shard_run(dev, targets5, rows5)
+    log("phase 14a %.1f s" % (time.time() - t))
+    t = time.time()
+    launches14b = part_pipeline_run(dev, workdir, targets5, peak5)
+    del targets5
+    log("phase 14b %.1f s" % (time.time() - t))
+    check_adapter_recheck(workdir, recheck10a)
 
     log("total %.1f s" % (time.time() - t_all))
     # each kernel's launches on its own path: phase 5, the u64 B1's
@@ -2395,6 +2543,10 @@ def main():
         if name.startswith("sketch"):
             entry["resources"] = {
                 "%d slots" % wm: v for (n, wm), v in sorted(resources.items())
+                if n == name}
+        if name.startswith("ext"):
+            entry["resources"] = {
+                arg: v for (n, arg), v in sorted(ext_resources.items())
                 if n == name}
         if name in ONT_RUN["kernels"]:
             entry["device_ms_phase5"] = dev_ms[name]
@@ -2431,5 +2583,20 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+SIDE.update({"big-data": big_part_data, "adapters": adapter_recheck})
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--side"]:
+        sys.path.insert(0, HERE)
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+        _parent = os.getppid()
+
+        def _orphaned():          # the script was killed: stop too
+            while os.getppid() == _parent:
+                time.sleep(1)
+            os._exit(1)
+        import threading
+        threading.Thread(target=_orphaned, daemon=True).start()
+        SIDE[sys.argv[2]](sys.argv[3])
+    else:
+        main()

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 from torch_util import (QC_JSON, SAMPLEQC_TABLES, compare_qc_json,
-                        ont_sampleqc_reads, pb_sampleqc_reads)
+                        ext_edge_pairs, ont_sampleqc_reads,
+                        pb_sampleqc_reads)
 
 from longqc_tpu_torch.engine import device_index as di
 from longqc_tpu_torch.ops import extend as ext
@@ -215,6 +216,28 @@ def test_extend_kernel_matches_plain(dev, mode, W):
         for key in ext.KEYS:
             assert torch.equal(k[key], p[key]), key
         assert bool(k["zdropped"].any()) and not bool(k["zdropped"].all())
+
+
+@pytest.mark.parametrize("W", [1, 31, 32, 63])
+@pytest.mark.parametrize("mode", ["extz", "extd"])
+def test_extend_kernel_edges_match_plain(dev, mode, W):
+    """The one-warp body (one column a lane up to W = 31, two from 32)
+    on the edge pairs of tests/test_torch_extend_sched.py: ql = 0,
+    tl = 0, ql = 1, tl = 1, lengths past the arrays' width, an all-4
+    query, ql >> tl, ql << tl and pairs that Z-drop early."""
+    from longqc_tpu_torch.ops import _ext
+    rng = np.random.RandomState(500 + W)
+    q, ql, t, tl = (torch.from_numpy(a).to(dev)
+                    for a in ext_edge_pairs(rng))
+    gap = {"gapo2": 24, "gape2": 1} if mode == "extd" else {}
+    for zdrop in (100, 400):
+        n0 = _ext.LAUNCHES[mode]
+        k = ext.extz_batch(q, ql, t, tl, W=W, zdrop=zdrop, **gap)
+        assert _ext.LAUNCHES[mode] == n0 + 1
+        p = ext.extz_batch_plain(q, ql, t, tl, W=W, zdrop=zdrop, **gap)
+        for key in ext.KEYS:
+            assert torch.equal(k[key], p[key]), (zdrop, key)
+        assert bool(k["zdropped"][14]) and not bool(k["zdropped"][15])
 
 
 @pytest.mark.parametrize("mode", ["extz", "extd"])

@@ -163,3 +163,54 @@ def k17_inputs(tmp_path):
     qf = str(tmp_path / "query.fq")
     write_fastq_file(qf, reads)
     return _control_ref_path(True), qf
+
+
+def ext_edge_pairs(rng, Lq=200, Lt=190):
+    """B5 inputs: (24, Lq) / (24, Lt) int32 codes and (24,) lengths. 14
+    pairs of five kinds (related at 10 % substitutions, unrelated, the
+    query's first half at 5 %, a 40-base deletion, equal), then ql = 0,
+    tl = 0, ql = 1, tl = 1, both lengths past the arrays' width, an
+    all-4 query, ql >> tl, ql << tl, and two unrelated pairs (which
+    Z-drop at zdrop = 100)."""
+    B = 24
+    qs = np.full((B, Lq), 4, np.int32)
+    ts = np.full((B, Lt), 4, np.int32)
+    qlens = np.zeros(B, np.int32)
+    tlens = np.zeros(B, np.int32)
+
+    def mutate(x, p):
+        x = x.copy()
+        hit = rng.rand(len(x)) < p
+        x[hit] = rng.randint(0, 4, hit.sum())
+        return x
+
+    for b in range(14):
+        base = rng.randint(0, 4, rng.randint(60, Lq - 5))
+        kind = b % 5
+        if kind == 0:
+            other = mutate(base, 0.1)
+        elif kind == 1:
+            other = rng.randint(0, 4, len(base))
+        elif kind == 2:
+            other = mutate(base[:len(base) // 2], 0.05)
+        elif kind == 3:
+            cut = len(base) // 3
+            other = np.concatenate([base[:cut], base[cut + 40:]])
+        else:
+            other = base
+        qc, tc = base[:Lq], other[:Lt]
+        qs[b, :len(qc)], ts[b, :len(tc)] = qc, tc
+        qlens[b], tlens[b] = len(qc), len(tc)
+    for b in range(14, B):
+        qs[b] = rng.randint(0, 4, Lq)
+        ts[b] = qs[b, :Lt]
+        qlens[b], tlens[b] = Lq - 20, Lt - 20
+    qlens[14], tlens[15] = 0, 0
+    qlens[16], tlens[17] = 1, 1
+    qlens[18], tlens[18] = Lq + 9, Lt + 7
+    qs[19], qlens[19] = 4, 120
+    qlens[20], tlens[20] = Lq - 10, 12
+    qlens[21], tlens[21] = 9, Lt - 5
+    for b in (22, 23):
+        ts[b] = rng.randint(0, 4, Lt)
+    return qs, qlens, ts, tlens
