@@ -10,7 +10,7 @@ prints the final result line):
      device -> fail
   2. build the five kernels (B1 sketch, B2 chain fill, B3 peak,
      B4 min-rank, B5 extension, with its one-warp body for W <= 63 and
-     its block-per-pair body for wider bands) from
+     its wide body, strips of 64 columns a warp, for wider bands) from
      longqc_tpu_torch/csrc, the port's FASTA/FASTQ reader
      (csrc/fastx_native.cpp, g++ -O3) and its sdust recursion
      (csrc/sdust_native.cpp); the registers, stack frame and spills of
@@ -208,9 +208,9 @@ SOURCES = {
     "extd": ("longqc_tpu_torch/csrc/extend.cu",
              "longqc_tpu/ops/extend_pallas.py:192"),
     "extz_wide": ("longqc_tpu_torch/csrc/extend.cu",
-                  "longqc_tpu/ops/extend_pallas.py:192"),
+                  "longqc_tpu/ops/extend.py:31"),
     "extd_wide": ("longqc_tpu_torch/csrc/extend.cu",
-                  "longqc_tpu/ops/extend_pallas.py:192"),
+                  "longqc_tpu/ops/extend.py:31"),
 }
 HPC_KERNELS = ("chain", "peak", "minrank")
 # CUDA kernel symbol prefix -> kernel name (the profiler's key); the B1
@@ -384,26 +384,29 @@ def sketch_resources():
 def extend_variant(symbol):
     """(LAUNCHES name, instance) of a B5 kernel symbol (mangled): the
     one-warp body `lq_extend_kernel<CPL, DUAL>` -> ("extz" / "extd",
-    "CPL columns a lane"), the wide body -> ("extz_wide" / "extd_wide",
-    "a block a pair"); None for any other symbol."""
+    "CPL columns a lane"), the wide body `lq_extend_wide_kernel<G, DUAL>`
+    -> ("extz_wide" / "extd_wide", "strips of 64 G columns, G warps");
+    None for any other symbol."""
     m = re.search(r"lq_extend_kernelILi(\d+)ELb([01])E", symbol)
     if m:
         return ("extd" if m.group(2) == "1" else "extz",
                 "%s columns a lane" % m.group(1))
-    m = re.search(r"lq_extend_wide_kernelILb([01])E", symbol)
+    m = re.search(r"lq_extend_wide_kernelILi(\d+)ELb([01])E", symbol)
     if m:
-        return ("extd_wide" if m.group(1) == "1" else "extz_wide",
-                "a block a pair")
+        return ("extd_wide" if m.group(2) == "1" else "extz_wide",
+                "strips of %d columns, %s warps" % (64 * int(m.group(1)),
+                                                    m.group(1)))
     return None
 
 
 def extend_resources():
     """Every B5 instance's resources (the one-warp body at one and two
-    columns a lane, the wide body; extz and extd each), printed."""
+    columns a lane, the wide body at one, two and four warps a pair;
+    extz and extd each), printed."""
     from longqc_tpu_torch.ops import _ext
     res = ptxas_resources(os.path.join(_ext.CSRC, "extend.cu"),
                           extend_variant)
-    log_resources("B5", res, 6)
+    log_resources("B5", res, 12)
     return res
 
 

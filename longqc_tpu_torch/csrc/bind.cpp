@@ -88,19 +88,20 @@ void extend_fill(T q, T ql, T t, T tl, T out, int64_t W, int64_t match,
                dual ? "extd" : "extz");
 }
 
-void extend_wide_fill(T q, T ql, T t, T tl, T out, T scratch, int64_t W,
-                      int64_t Wa, int64_t match, int64_t mismatch,
+void extend_wide_fill(T q, T ql, T t, T tl, T order, T out, T scratch,
+                      int64_t W, int64_t Wa, int64_t match, int64_t mismatch,
                       int64_t gapo, int64_t gape, int64_t gapo2,
-                      int64_t gape2, int64_t zdrop, bool dual, int64_t nblk) {
+                      int64_t gape2, int64_t zdrop, bool dual, int64_t nslot,
+                      int64_t G) {
   const c10::cuda::CUDAGuard guard(q.device());
   check_launch(
       lq_extend_wide_fill(q.data_ptr(), ql.data_ptr(), t.data_ptr(),
-                          tl.data_ptr(), out.data_ptr(), (int)q.size(0),
-                          (int)q.size(1), (int)t.size(1), (int)W, (int)Wa,
-                          (int)match, (int)mismatch, (int)gapo, (int)gape,
-                          (int)gapo2, (int)gape2, (int)zdrop, dual ? 1 : 0,
-                          scratch.numel() ? scratch.data_ptr() : nullptr,
-                          (int)nblk, stream_of(q)),
+                          tl.data_ptr(), order.data_ptr(), out.data_ptr(),
+                          (int)q.size(0), (int)q.size(1), (int)t.size(1),
+                          (int)W, (int)Wa, (int)match, (int)mismatch,
+                          (int)gapo, (int)gape, (int)gapo2, (int)gape2,
+                          (int)zdrop, dual ? 1 : 0, scratch.data_ptr(),
+                          (int)nslot, (int)G, stream_of(q)),
       dual ? "extd_wide" : "extz_wide");
 }
 

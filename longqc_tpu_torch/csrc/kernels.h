@@ -33,14 +33,16 @@ int lq_extend_fill(const void* q, const void* ql, const void* t,
                    int match, int mismatch, int gapo, int gape, int gapo2,
                    int gape2, int zdrop, int dual, void* stream);
 
-// the wide body (any W): Wa bounds every pair's clamped half band;
-// scratch == NULL keeps the band in dynamic shared memory, else it holds
-// nblk blocks' slices of 6 * (2 * Wa + 2) ints
+// the wide body (any W): Wa bounds every pair's clamped half band; G
+// warps a pair (1, 2, 4 or 8), the pairs in `order`, walked by nslot pair
+// slots whose boundary columns of (2 + dual) x (2 Wa + 1) ints each
+// `scratch` holds
 int lq_extend_wide_fill(const void* q, const void* ql, const void* t,
-                        const void* tl, void* out, int B, int Lq, int Lt,
-                        int W, int Wa, int match, int mismatch, int gapo,
-                        int gape, int gapo2, int gape2, int zdrop, int dual,
-                        void* scratch, int nblk, void* stream);
+                        const void* tl, const void* order, void* out, int B,
+                        int Lq, int Lt, int W, int Wa, int match,
+                        int mismatch, int gapo, int gape, int gapo2,
+                        int gape2, int zdrop, int dual, void* scratch,
+                        int nslot, int G, void* stream);
 
 #ifdef __cplusplus
 }

@@ -5,18 +5,42 @@ longqc_tpu/ops/extend_pallas (extz_batch_pallas / extz_device), on CUDA
 tensors; ops/extend.extz_batch routes CUDA inputs here and CPU inputs
 to the plain version, extz_batch_plain. Half band widths up to NARROW_W
 take the one-warp body (counted as extz / extd); every wider W, as the
-JAX extz_batch takes, the block-per-pair body (extz_wide / extd_wide),
-whose band is clamped per pair to min(W, max(qlen, columns)).
+JAX lax.scan extz_batch takes, the wide body (extz_wide / extd_wide),
+which walks each pair's columns in strips of 64 with a boundary column
+in device memory, and whose band is clamped per pair to min(W,
+max(qlen, columns)).
 """
 
 import torch
 
 from longqc_tpu_torch.ops import _ext
 
-NARROW_W = 63       # 2W+1 band rows over 32 lanes, up to 4 per lane
-SMEM_BYTES = 48 * 1024   # the wide body's band in shared memory up to here
-WIDE_BLOCKS = 1024       # blocks of the wide body when its band is in
-#                          device memory (one scratch slice each)
+NARROW_W = 63       # W+1 live columns in 64 slots of one warp
+WIDE_SCRATCH_BYTES = 1 << 28   # the wide body's boundary columns (one a
+#                                pair slot) take at most this many bytes
+WIDE_ROW_WARPS = 16  # the wide body's warps (pairs x warps a pair) per
+#                      band row, past which more warps a pair cost more
+#                      issue slots than their shorter walks save
+
+
+def wide_warps(B, Wa):
+    """Warps a pair takes in the wide body: 1, 2, 4 or 8, doubling while
+    the strip (64 columns a warp) stays at most half a column tall (2 Wa +
+    1 band rows), so its ramp costs little, and the B pairs' warps stay
+    within WIDE_ROW_WARPS a band row: many pairs fill the card at one
+    warp each, few long pairs walk their strips with more."""
+    rows = 2 * Wa + 1
+    G = 1
+    while G < 8 and rows >= 256 * G and 2 * G * B <= WIDE_ROW_WARPS * rows:
+        G *= 2
+    return G
+
+
+def wide_order(ql, tl, Lt, Wa):
+    """The wide body's pair order: the most band cells (columns x column
+    height) first, so that the longest pairs do not start last."""
+    cells = (tl.clamp(0, Lt).long() * ql.clamp(0, 2 * Wa + 1).long())
+    return torch.argsort(cells, descending=True).to(torch.int32)
 
 
 def extend_fill(query, qlens, target, tlens, *, W, match=2, mismatch=-4,
@@ -47,14 +71,12 @@ def extend_fill(query, qlens, target, tlens, *, W, match=2, mismatch=-4,
     # every pair's clamped half band is at most Wa (one host read of the
     # longest query length: lengths may pass the code arrays' width)
     Wa = min(W, max(int(ql.max()), t.shape[1], 0))
-    ints = 6 * (2 * Wa + 2)
-    nblk = B
-    scratch = torch.empty(0, dtype=torch.int32, device=q.device)
-    if ints * 4 > SMEM_BYTES:
-        nblk = min(B, WIDE_BLOCKS)
-        scratch = torch.empty(nblk * ints, dtype=torch.int32,
-                              device=q.device)
+    ints = (3 if dual else 2) * (2 * Wa + 1)
+    nslot = min(B, max(1, WIDE_SCRATCH_BYTES // (4 * ints)))
+    scratch = torch.empty(nslot * ints, dtype=torch.int32, device=q.device)
+    order = wide_order(ql, tl, t.shape[1], Wa)
     _ext.LAUNCHES["extd_wide" if dual else "extz_wide"] += 1
-    lib.extend_wide_fill(q, ql, t, tl, out, scratch, W, Wa, match, mismatch,
-                         *gaps, zdrop, dual, nblk)
+    lib.extend_wide_fill(q, ql, t, tl, order, out, scratch, W, Wa, match,
+                         mismatch, *gaps, zdrop, dual, nslot,
+                         wide_warps(B, Wa))
     return out

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 from torch_util import (QC_JSON, SAMPLEQC_TABLES, compare_qc_json,
-                        ext_edge_pairs, ont_sampleqc_reads,
-                        pb_sampleqc_reads)
+                        ext_edge_pairs, ext_strip_pairs,
+                        ont_sampleqc_reads, pb_sampleqc_reads)
 
 from longqc_tpu_torch.engine import device_index as di
 from longqc_tpu_torch.ops import extend as ext
@@ -200,7 +200,7 @@ def _ext_pairs(rng, B, Lq, Lt):
 @pytest.mark.parametrize("W", [1, 15, 16, 32, 40, 63, 64, 255, 5000])
 @pytest.mark.parametrize("mode", ["extz", "extd"])
 def test_extend_kernel_matches_plain(dev, mode, W):
-    """W <= 63 takes the one-warp body, wider W the block-per-pair body;
+    """W <= 63 takes the one-warp body, wider W the wide body (strips);
     W = 5000 lies past every pair (lengths up to 720), so its band is
     clamped per pair, while the plain version runs the full band."""
     from longqc_tpu_torch.ops import _ext
@@ -218,39 +218,51 @@ def test_extend_kernel_matches_plain(dev, mode, W):
         assert bool(k["zdropped"].any()) and not bool(k["zdropped"].all())
 
 
-@pytest.mark.parametrize("W", [1, 31, 32, 63])
+@pytest.mark.parametrize("W", [1, 31, 32, 63, 64, 65, 127, 128, 255, 300,
+                               5000])
 @pytest.mark.parametrize("mode", ["extz", "extd"])
 def test_extend_kernel_edges_match_plain(dev, mode, W):
     """The one-warp body (one column a lane up to W = 31, two from 32)
     on the edge pairs of tests/test_torch_extend_sched.py: ql = 0,
     tl = 0, ql = 1, tl = 1, lengths past the arrays' width, an all-4
-    query, ql >> tl, ql << tl and pairs that Z-drop early."""
+    query, ql >> tl, ql << tl and pairs that Z-drop early; the wide body
+    (W >= 64, strips of 64 columns a warp: 1 warp a pair up to W = 127,
+    2 at 128 and 255, 4 at 300, 8 at 5000) on the same kinds of pairs of
+    up to 600 bases, and pairs of exactly 64, 65 and 128 columns and one
+    that Z-drops in its second strip at zdrop = 100."""
     from longqc_tpu_torch.ops import _ext
     rng = np.random.RandomState(500 + W)
-    q, ql, t, tl = (torch.from_numpy(a).to(dev)
-                    for a in ext_edge_pairs(rng))
+    pairs = ext_edge_pairs(rng) if W <= 63 else ext_strip_pairs(rng)
+    q, ql, t, tl = (torch.from_numpy(a).to(dev) for a in pairs)
     gap = {"gapo2": 24, "gape2": 1} if mode == "extd" else {}
+    name = mode + ("_wide" if W > 63 else "")
     for zdrop in (100, 400):
-        n0 = _ext.LAUNCHES[mode]
+        n0 = _ext.LAUNCHES[name]
         k = ext.extz_batch(q, ql, t, tl, W=W, zdrop=zdrop, **gap)
-        assert _ext.LAUNCHES[mode] == n0 + 1
+        assert _ext.LAUNCHES[name] == n0 + 1
         p = ext.extz_batch_plain(q, ql, t, tl, W=W, zdrop=zdrop, **gap)
         for key in ext.KEYS:
             assert torch.equal(k[key], p[key]), (zdrop, key)
         assert bool(k["zdropped"][14]) and not bool(k["zdropped"][15])
+        if W > 63:
+            assert not bool(k["zdropped"][24:27].any())
+            assert bool(k["zdropped"][27]) or zdrop == 400
 
 
 @pytest.mark.parametrize("mode", ["extz", "extd"])
 def test_extend_wide_band_in_device_memory(dev, mode, monkeypatch):
-    """The wide body with its band in device memory (no shared memory
-    allowed) and 7 blocks walking the 300 pairs."""
+    """The wide body with its scratch cap cut to 7 pair slots' boundary
+    columns in device memory, so that 7 slots (of 1, 2 and 8 warps at
+    W = 64, 255 and 5000) walk the 300 pairs."""
     from longqc_tpu_torch.ops import extend_cuda
-    monkeypatch.setattr(extend_cuda, "SMEM_BYTES", 0)
-    monkeypatch.setattr(extend_cuda, "WIDE_BLOCKS", 7)
     rng = np.random.RandomState(77)
     q, ql, t, tl = (a.to(dev) for a in _ext_pairs(rng, 300, 700, 650))
     gap = {"gapo2": 24, "gape2": 1} if mode == "extd" else {}
     for W in (64, 255, 5000):
+        Wa = min(W, max(int(ql.max()), t.shape[1]))
+        assert extend_cuda.wide_warps(300, Wa) == {64: 1, 255: 2, 5000: 8}[W]
+        ints = (3 if gap else 2) * (2 * Wa + 1)
+        monkeypatch.setattr(extend_cuda, "WIDE_SCRATCH_BYTES", 7 * 4 * ints)
         k = ext.extz_batch(q, ql, t, tl, W=W, zdrop=400, **gap)
         p = ext.extz_batch_plain(q, ql, t, tl, W=W, zdrop=400, **gap)
         for key in ext.KEYS:

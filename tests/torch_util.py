@@ -214,3 +214,26 @@ def ext_edge_pairs(rng, Lq=200, Lt=190):
     for b in (22, 23):
         ts[b] = rng.randint(0, 4, Lt)
     return qs, qlens, ts, tlens
+
+
+def ext_strip_pairs(rng, Lq=600, Lt=590):
+    """B5 inputs for the wide body's strips of 64 columns: the 24 pairs
+    of ext_edge_pairs at (Lq, Lt), then related pairs of exactly 64, 65
+    and 128 columns, and one whose target turns to code 4 after 40
+    columns, which Z-drops in its second strip at zdrop = 100 (Lt >= 150).
+    -> (28, Lq) / (28, Lt) int32 codes and (28,) lengths."""
+    eq, eql, et, etl = ext_edge_pairs(rng, Lq, Lt)
+    qs = np.full((4, Lq), 4, np.int32)
+    ts = np.full((4, Lt), 4, np.int32)
+    n = min(Lq, Lt) - 10
+    qlens = np.array([Lq - 30, Lq - 30, 150, n], np.int32)
+    tlens = np.array([64, 65, 128, n], np.int32)
+    for b in range(4):
+        qs[b, :qlens[b]] = rng.randint(0, 4, qlens[b])
+        tc = qs[b, :tlens[b]].copy()
+        sub = rng.rand(tlens[b]) < 0.05
+        tc[sub] = rng.randint(0, 4, sub.sum())
+        ts[b, :tlens[b]] = tc
+    ts[3, 40:] = 4
+    return (np.concatenate([eq, qs]), np.concatenate([eql, qlens]),
+            np.concatenate([et, ts]), np.concatenate([etl, tlens]))
