@@ -1338,7 +1338,7 @@ def big_part_run(dev, workdir, data_proc):
     run's launch counts."""
     import numpy as np
     import torch
-    from longqc_tpu_torch import cli
+    from longqc_tpu_torch import cli, tracing
     from longqc_tpu_torch.engine import device_index as di
     from longqc_tpu_torch.io.fastx import iter_fastx
     from longqc_tpu_torch.ops import _ext
@@ -1434,7 +1434,10 @@ def big_part_run(dev, workdir, data_proc):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     t = time.time()
-    idx = di.build_device_index(targets, k, w, device=dev, on_chunk=sample)
+    build = {}
+    with tracing.run(build):
+        idx = di.build_device_index(targets, k, w, device=dev,
+                                    on_chunk=sample)
     torch.cuda.synchronize()
     build_wall = time.time() - t
     build_peak = torch.cuda.max_memory_allocated() - held
@@ -1446,7 +1449,8 @@ def big_part_run(dev, workdir, data_proc):
         "base); the build's reckoning %d bytes"
         % (phase, idx["n_tiles"], n_real, idx["n_idx"], idx["n_ranges"],
            int(idx["mid_occ"]), build_wall,
-           json.dumps({key: round(v, 3) for key, v in idx["build_s"].items()}),
+           json.dumps({key: round(v["wall_s"], 3) for key, v in
+                       build["spans"]["by_name"].items()}),
            build_peak, held, build_peak / 1e9, build_peak / tbp,
            idx["reckoned_bytes"]))
     if idx["n_ranges"] < 2:

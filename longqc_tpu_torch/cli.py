@@ -101,7 +101,7 @@ def command_mmcov(args):
             # (the device engine keeps m_cnts on the device)
             rows, states, q_sk = oh.overlap_run_with_states(
                 targets, queries, cfg, index_cache=args.db or None,
-                device=args.device)
+                device=args.device, stats=stats)
             counts = oh.aggregate_minimizer_counts(q_sk, states)
             for j, cval in enumerate(np.asarray(counts).tolist()):
                 print("[z] minimizer %d cnt: %d" % (j, cval),
@@ -111,7 +111,8 @@ def command_mmcov(args):
             # -d with a query: build-or-load the npz cache, then map with
             # the host spec (the reference's tempdb flow)
             rows = oh.overlap_run(targets, queries, cfg,
-                                  index_cache=args.db, device=args.device)
+                                  index_cache=args.db, device=args.device,
+                                  stats=stats)
             stats["engine"] = "host_spec"
         else:
             rows = overlap_run_device(targets, queries, cfg,
@@ -184,8 +185,12 @@ def build_parser():
                      help="stop after the QC JSON: no figures, no HTML "
                           "(they need matplotlib and jinja2)")
     p_s.add_argument("--stats", default=None,
-                     help="write each stage's seconds and the overlap "
-                          "engine's run counters (JSON) here")
+                     help="write the run's spans (per span name: count, "
+                          "wall, self and thread CPU seconds) and "
+                          "counters, each stage's seconds read from them "
+                          "and the overlap engine's run counters (JSON) "
+                          "here; under torch.profiler also every span's "
+                          "interval (span_log)")
     p_s.add_argument("--device", default="cuda",
                      help="torch device of every stage (default cuda; "
                           "raises when no GPU is present)")
@@ -220,7 +225,8 @@ def build_parser():
                           "which engine ran, phase seconds, step calls, "
                           "flags, host-fixed rows, host-only and "
                           "hash-range-built parts (the batched chainer: "
-                          "its B2 calls and device / host rows)")
+                          "its B2 calls and device / host rows) and the "
+                          "run's spans")
     p_m.add_argument("--device", default="cuda",
                      help="torch device of the engine (default cuda; "
                           "raises when no GPU is present)")

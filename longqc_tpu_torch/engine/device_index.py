@@ -45,7 +45,6 @@ with its dtype's max as the empty-slot sentinel (`infk`), which sorts
 after every real hash; irid / ips are int32 either way.
 """
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,6 +53,7 @@ import torch
 from longqc_tpu_torch.io.pack import SEQ_NT4_SKETCH
 from longqc_tpu_torch.ops.sketch_cuda import (READS_PER_ROW, hash_dtype,
                                               sketch_tiles)
+from longqc_tpu_torch.tracing import span
 
 # single-pass encode tables: ASCII byte -> 2-bit code / ambiguity
 _CODE_OF = np.where(SEQ_NT4_SKETCH < 4, SEQ_NT4_SKETCH, 0).astype(np.uint8)
@@ -565,12 +565,12 @@ def _range_merge(chunks, k, n_real, range_max, mid_occ_fixed,
 
 
 def pack_part(part, w, ladder=TILE_LADDER):
-    """The build's host step: the part's tiles (multi-read, then jumbo)
-    and the seconds the packing took. Numpy only, so it may run on a
-    thread beside another part's device work."""
-    t0 = time.time()
-    tiles, jumbo = pack_part_tiles(part, w, ladder=ladder)
-    return tiles + jumbo, time.time() - t0
+    """The build's host step (span `part.pack`): the part's tiles
+    (multi-read, then jumbo). Numpy only, so it may run on a thread
+    beside another part's device work."""
+    with span("part.pack"):
+        tiles, jumbo = pack_part_tiles(part, w, ladder=ladder)
+    return tiles + jumbo
 
 
 def build_device_index(part, k, w, *, device, ladder=TILE_LADDER,
@@ -582,34 +582,32 @@ def build_device_index(part, k, w, *, device, ladder=TILE_LADDER,
     ih (hash_dtype(k)) / irid / ips (int32) flat tensors of width
     n_idx, mid_occ (0-d int32 tensor), n_tiles, n_real (real entries),
     n_ranges (the hash-range build's S; 0 when the part fit the width
-    ladder), reckoned_bytes (reckon_bytes of that build; 0 on the
-    ladder) and build_s (seconds: host packing, B1 plus chunks, the
-    merge). Raises IndexOverflowError for an empty part, past
+    ladder) and reckoned_bytes (reckon_bytes of that build; 0 on the
+    ladder); its steps are the spans `part.pack` (host packing),
+    `index.tiles` (B1 plus chunks) and `index.merge`. Raises
+    IndexOverflowError for an empty part, past
     max_entries real entries, or when a part past the ladder would need
     more device bytes (reckon_bytes) than mem_free (default: what
     free_bytes reports). on_chunk(chunk, n_real), if given, sees every
     tile's final sorted chunk before the merge. tiles: the part's tiles
-    from pack_part, packed ahead by the caller (build_s then has no
-    "pack" entry); None packs them here."""
+    from pack_part, packed ahead by the caller; None packs them here."""
     device = torch.device(device)
-    secs = {}
     if tiles is None:
-        tiles, secs["pack"] = pack_part(part, w, ladder=ladder)
+        tiles = pack_part(part, w, ladder=ladder)
     if not tiles:
         raise IndexOverflowError("empty part")
-    t0 = time.time()
     need = 0
-    if sum(_crop_width(t.R * t.W) for t in tiles) <= n_idx_sizes[-1]:
-        chunks, n_exp = _ladder_chunks(tiles, k, w, device)
-    else:
-        need = reckon_bytes(tiles, k, w, range_max)
-        free = free_bytes(device) if mem_free is None else mem_free
-        if free is not None and need > free:
-            raise IndexOverflowError("the part's index build needs ~%d "
-                                     "device bytes, %d are free"
-                                     % (need, free))
-        chunks, n_exp = _compact_chunks(tiles, k, w, device)
-    secs["tiles"] = time.time() - t0
+    with span("index.tiles"):
+        if sum(_crop_width(t.R * t.W) for t in tiles) <= n_idx_sizes[-1]:
+            chunks, n_exp = _ladder_chunks(tiles, k, w, device)
+        else:
+            need = reckon_bytes(tiles, k, w, range_max)
+            free = free_bytes(device) if mem_free is None else mem_free
+            if free is not None and need > free:
+                raise IndexOverflowError("the part's index build needs ~%d "
+                                         "device bytes, %d are free"
+                                         % (need, free))
+            chunks, n_exp = _compact_chunks(tiles, k, w, device)
     n_real = sum(n_exp)
     if n_real > max_entries:
         raise IndexOverflowError("part of %d index entries exceeds %d"
@@ -617,19 +615,18 @@ def build_device_index(part, k, w, *, device, ladder=TILE_LADDER,
     if on_chunk is not None:
         for c, n in zip(chunks, n_exp):
             on_chunk(c, n)
-    t0 = time.time()
-    if sum(int(c[0].shape[0]) for c in chunks) <= n_idx_sizes[-1]:
-        final, n_idx = _merge_chunks(chunks, n_idx_sizes)
-        mo = _mid_occ(final[0], mid_occ_fixed, mid_occ_frac)
-        n_ranges = 0
-    else:
-        final, n_ranges, mo = _range_merge(chunks, k, n_real, range_max,
-                                           mid_occ_fixed, mid_occ_frac)
-        n_idx = int(final[0].shape[0])
-    del chunks
-    _sync(device)
-    secs["merge"] = time.time() - t0
+    with span("index.merge"):
+        if sum(int(c[0].shape[0]) for c in chunks) <= n_idx_sizes[-1]:
+            final, n_idx = _merge_chunks(chunks, n_idx_sizes)
+            mo = _mid_occ(final[0], mid_occ_fixed, mid_occ_frac)
+            n_ranges = 0
+        else:
+            final, n_ranges, mo = _range_merge(chunks, k, n_real, range_max,
+                                               mid_occ_fixed, mid_occ_frac)
+            n_idx = int(final[0].shape[0])
+        del chunks
+        _sync(device)
     ih, irid, ips = final
     return {"ih": ih, "irid": irid, "ips": ips, "mid_occ": mo,
             "n_idx": n_idx, "n_tiles": len(tiles), "n_real": n_real,
-            "n_ranges": n_ranges, "build_s": secs, "reckoned_bytes": need}
+            "n_ranges": n_ranges, "reckoned_bytes": need}

@@ -59,7 +59,6 @@ minimap2-coverage.c:545-617.
 import concurrent.futures as cf
 import os
 import threading
-import time
 from bisect import bisect_left
 from collections import defaultdict
 from dataclasses import dataclass
@@ -68,6 +67,7 @@ from logging import getLogger
 import numpy as np
 import torch
 
+from longqc_tpu_torch import tracing
 from longqc_tpu_torch.config import OverlapConfig
 from longqc_tpu_torch.engine import device_index as di
 from longqc_tpu_torch.engine import overlap_host as oh
@@ -77,8 +77,9 @@ from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill
 from longqc_tpu_torch.ops.ringprop import INF32, minrank_pass, peak_pass
 from longqc_tpu_torch.ops.sketch import sketch_batch
 from longqc_tpu_torch.ops.sketch_cuda import sketch_tiles
-from longqc_tpu_torch.ops.sketch_hpc import (hpc_compress, pack_hpc,
-                                             sketch_reads_hpc)
+from longqc_tpu_torch.ops.sketch_hpc import (hpc_compress, hpc_compress_all,
+                                             pack_hpc, sketch_reads_hpc)
+from longqc_tpu_torch.tracing import span
 
 logger = getLogger(__name__)
 
@@ -725,7 +726,7 @@ class _Group:
             # per run, positions = run-end read coordinate, spans =
             # windowed run-length sums; the compressed length is at most
             # the read length, so the read's bucket fits
-            comp = [hpc_compress(reads[i][1], k) for i in qids]
+            comp = hpc_compress_all([reads[i][1] for i in qids], k)
             comp += [hpc_compress("A" * k, k)] * (lanes - len(comp))
             codes, lengths, positions, spans = (
                 torch.from_numpy(a).to(device)
@@ -831,7 +832,6 @@ class _PartIndex:
     def __init__(self, part, k, w, mid_occ_fixed, mid_occ_frac, ladder,
                  n_idx_sizes, device, hpc=False, range_max=di.RANGE_MAX,
                  max_entries=di.INDEX_MAX):
-        t0 = time.time()
         self.part = part
         self.names = [r[0] for r in part]
         uniq = sorted(set(self.names))
@@ -859,11 +859,8 @@ class _PartIndex:
         self.copies = {}
         self.n_ranges = 0
         self.tiles = None
-        self.build_s = {}
         if not hpc:
-            self.tiles, self.build_s["pack"] = di.pack_part(part, w,
-                                                            ladder=ladder)
-        self.prep_s = time.time() - t0
+            self.tiles = di.pack_part(part, w, ladder=ladder)
 
     def build(self):
         """The device step: the index arrays on self.device."""
@@ -901,7 +898,6 @@ class _PartIndex:
             self.ih, self.irid, self.ips = idx["ih"], idx["irid"], idx["ips"]
             self.mid_occ = idx["mid_occ"]
             self.n_ranges = idx["n_ranges"]
-            self.build_s.update(idx["build_s"])
         except di.IndexOverflowError:
             logger.warning("device index overflow; part falls back to "
                            "the host path")
@@ -922,6 +918,17 @@ class _PartIndex:
                                               is_hpc=self.hpc,
                                               device=self.device)
         return self._host_index
+
+
+# DeviceOverlapEngine.stats()'s phase_s and index_s: each key's spans
+PHASE_SPANS = {"stage": ("group.stage",), "part_wait": ("part.wait",),
+               "index": ("part.prep", "index.build"),
+               "count": ("step.count",),
+               "step": ("step.launch", "step.pull", "step.retry"),
+               "pull": ("step.unpack",), "host_fix": ("step.host_fix",),
+               "finalize": ("finalize",)}
+INDEX_SPANS = {"pack": ("part.pack",), "tiles": ("index.tiles",),
+               "merge": ("index.merge",)}
 
 
 def _a_ladder(a_ladder, on_gpu):
@@ -1024,21 +1031,22 @@ class DeviceOverlapEngine:
         self.n_retry_steps = 0
         self.n_index_copies = 0   # (part, distinct device) index copies
         self.n_parts_aside = 0    # parts whose host step ran on the thread
-        self.phase_s = defaultdict(float)   # wall time per phase
-        self.index_s = defaultdict(float)   # `index` split by build step
+        self.spans = None         # what run() recorded (tracing.run)
         self.flag_counts = defaultdict(int)
 
     def stats(self):
         """Run counters: wall seconds per phase (`part_wait`: the main
         thread waiting for the side thread's next part) and of the device
-        index builds (host packing, B1 plus chunks, the merge), step
+        index builds (host packing, B1 plus chunks, the merge), both
+        read from the run's spans (PHASE_SPANS, INDEX_SPANS), step
         calls and retry steps, final flag counts by bit pattern,
         host-fixed rows, host-only parts, parts built by hash range and
         each part's number of hash ranges, the run's devices (`shards`),
         index copies (one per part and distinct device) and the parts
         packed on the side thread."""
-        return {"phase_s": dict(self.phase_s),
-                "index_s": dict(self.index_s),
+        fold = self.spans or {"by_name": {}}
+        return {"phase_s": tracing.legacy(fold, PHASE_SPANS),
+                "index_s": tracing.legacy(fold, INDEX_SPANS),
                 "device_calls": self.n_device_calls,
                 "retry_steps": self.n_retry_steps,
                 "flag_counts": {str(k): v for k, v in
@@ -1060,16 +1068,15 @@ class DeviceOverlapEngine:
     def groups(self):
         """Query groups, staged on first access."""
         if self._groups is None:
-            t0 = time.time()
-            gs = []
-            for blen, idxs in sorted(self._by_bucket.items()):
-                for off in range(0, len(idxs), self.lanes):
-                    gs.append(_Group(idxs[off:off + self.lanes],
-                                     self.queries, self.k, self.w,
-                                     self.device, lanes=self.lanes,
-                                     hpc=self.hpc, devices=self.devices))
+            with span("group.stage"):
+                gs = []
+                for blen, idxs in sorted(self._by_bucket.items()):
+                    for off in range(0, len(idxs), self.lanes):
+                        gs.append(_Group(idxs[off:off + self.lanes],
+                                         self.queries, self.k, self.w,
+                                         self.device, lanes=self.lanes,
+                                         hpc=self.hpc, devices=self.devices))
             self._groups = gs
-            self.phase_s["stage"] += time.time() - t0
         return self._groups
 
     def _static(self, g, A):
@@ -1084,7 +1091,15 @@ class DeviceOverlapEngine:
         is released, so one device build is live at a time. A side-thread
         failure is raised here. parts: pre-grouped part read-lists (the
         -d prefetch path), iterated in place of target_iter's parts.
-        progress: called with the query index once per row and part."""
+        progress: called with the query index once per row and part.
+        What the run records (tracing) is kept in self.spans."""
+        try:
+            with tracing.run() as scope:
+                return self._run(target_iter, parts, progress)
+        finally:
+            self.spans = scope.fold
+
+    def _run(self, target_iter, parts, progress):
         cfg = self.cfg
         part_iter = (iter(parts) if parts is not None
                      else oh.iter_index_parts(target_iter,
@@ -1092,41 +1107,38 @@ class DeviceOverlapEngine:
         main = threading.get_ident()
 
         def prepare():
-            part = next(part_iter, None)
+            with span("part.read"):
+                part = next(part_iter, None)
             if part is None:
                 return None
-            pidx = _PartIndex(part, self.k, self.w, cfg.map.mid_occ,
-                              cfg.map.mid_occ_frac, self.tile_ladder,
-                              self.n_idx_sizes, self.device, hpc=self.hpc,
-                              range_max=self.range_max,
-                              max_entries=self.max_index_entries)
+            with span("part.prep"):
+                pidx = _PartIndex(part, self.k, self.w, cfg.map.mid_occ,
+                                  cfg.map.mid_occ_frac, self.tile_ladder,
+                                  self.n_idx_sizes, self.device,
+                                  hpc=self.hpc, range_max=self.range_max,
+                                  max_entries=self.max_index_entries)
             pidx.aside = threading.get_ident() != main
             return pidx
 
+        prepare = tracing.carry("part", prepare)
         with cf.ThreadPoolExecutor(max_workers=1,
                                    thread_name_prefix="longqc-part") as ex:
             fut = ex.submit(prepare)
             _ = self.groups
             while True:
-                t0 = time.time()
-                pidx = fut.result()
-                self.phase_s["part_wait"] += time.time() - t0
+                with span("part.wait"):
+                    pidx = fut.result()
                 if pidx is None:
                     break
                 fut = ex.submit(prepare)
                 self.n_parts_aside += pidx.aside
-                t0 = time.time()
-                pidx.build()
-                self.phase_s["index"] += pidx.prep_s + time.time() - t0
-                for key, v in pidx.build_s.items():
-                    self.index_s[key] += v
+                with span("index.build"):
+                    pidx.build()
                 self.part_ranges.append(pidx.n_ranges)
                 self._run_part(pidx, progress)
                 pidx = None           # release the index before the next
-        t0 = time.time()
-        rows = self._finalize()
-        self.phase_s["finalize"] += time.time() - t0
-        return rows
+        with span("finalize"):
+            return self._finalize()
 
     def _replicate(self, pidx):
         """The part index on each distinct device of the run: the
@@ -1174,24 +1186,28 @@ class DeviceOverlapEngine:
         on the device."""
         sh, = g.shards
         irid, ips, seq_lens, rid_rank, mid_occ = pidx.copies[sh.device]
-        anchors, stats = _step_hpc_a(
-            irid, ips, rid_rank, mid_occ, left, occ, g.qps, g.qcnt,
-            g.n_slots, g.qspan, g.qlen, sh.put(qrank), sh.put(qbisect), st)
-        stats_np = stats.cpu().numpy()
-        bw = self.cfg.map.bw
-        pen = np.zeros((self.lanes, bw + 1), np.int32)
-        kept_avg = np.zeros(self.lanes, np.float32)
-        for r, (n_a, ssum, nk, kss, _nq) in enumerate(stats_np.tolist()):
-            if nk > 0:
-                kept_avg[r] = np.float32(kss / nk)
-            if n_a > 0:
-                pen[r] = gap_penalty_table(np.float32(ssum / n_a), bw)
-        qv = sh.qvalid if qvalid is None else sh.put(qvalid)
-        (sh.lam, sh.lam2, sh.avgk_set, sh.avgk_val, sh.m_cnts, small,
-         full) = _step_hpc_b(
-            anchors, seq_lens, sh.qlen, qv, sh.n_exp, sh.lam, sh.lam2,
-            sh.avgk_set, sh.avgk_val, sh.m_cnts, sh.put(pen),
-            sh.put(kept_avg), st)
+        with span("step.hpc_a"):
+            anchors, stats = _step_hpc_a(
+                irid, ips, rid_rank, mid_occ, left, occ, g.qps, g.qcnt,
+                g.n_slots, g.qspan, g.qlen, sh.put(qrank), sh.put(qbisect),
+                st)
+            stats_np = stats.cpu().numpy()
+        with span("step.hpc_tables"):
+            bw = self.cfg.map.bw
+            pen = np.zeros((self.lanes, bw + 1), np.int32)
+            kept_avg = np.zeros(self.lanes, np.float32)
+            for r, (n_a, ssum, nk, kss, _nq) in enumerate(stats_np.tolist()):
+                if nk > 0:
+                    kept_avg[r] = np.float32(kss / nk)
+                if n_a > 0:
+                    pen[r] = gap_penalty_table(np.float32(ssum / n_a), bw)
+        with span("step.hpc_b"):
+            qv = sh.qvalid if qvalid is None else sh.put(qvalid)
+            (sh.lam, sh.lam2, sh.avgk_set, sh.avgk_val, sh.m_cnts, small,
+             full) = _step_hpc_b(
+                anchors, seq_lens, sh.qlen, qv, sh.n_exp, sh.lam, sh.lam2,
+                sh.avgk_set, sh.avgk_val, sh.m_cnts, sh.put(pen),
+                sh.put(kept_avg), st)
         self.n_device_calls += 1
         return [small], [full]
 
@@ -1225,15 +1241,16 @@ class DeviceOverlapEngine:
         clean; return the rows that still need work. `forced`: rows
         masked off up front (their count exceeds the top anchor rung)."""
         forced = set(forced)
-        for r in want:
-            if flags_np[r] or g.perm_host[r] or r in forced:
-                continue
-            qi = g.qids[r]
-            ev = ev_rows[r]
-            if ev is not None and len(ev):
-                self.events[qi].extend(int(x) for x in ev)
-            if progress:
-                progress(qi)
+        with span("step.commit"):
+            for r in want:
+                if flags_np[r] or g.perm_host[r] or r in forced:
+                    continue
+                qi = g.qids[r]
+                ev = ev_rows[r]
+                if ev is not None and len(ev):
+                    self.events[qi].extend(int(x) for x in ev)
+                if progress:
+                    progress(qi)
         return [r for r in want
                 if flags_np[r] or g.perm_host[r] or r in forced]
 
@@ -1244,17 +1261,16 @@ class DeviceOverlapEngine:
                left, occ, progress):
         """Re-run `rows` alone at rung A; returns the rows still needing
         work."""
-        t0 = time.time()
-        qv = np.zeros(self.lanes, np.int32)
-        qv[rows] = 1
-        smalls, fulls = self._step_group(g, pidx, qrank, qbisect, qv, A,
-                                         left, occ)
-        self.n_retry_steps += 1
-        flags2, ev_rows2 = self._pull_step(smalls, fulls)
-        for r in rows:
-            flags_np[r] = flags2[r]
-            ev_rows[r] = ev_rows2[r]
-        self.phase_s["step"] += time.time() - t0
+        with span("step.retry"):
+            qv = np.zeros(self.lanes, np.int32)
+            qv[rows] = 1
+            smalls, fulls = self._step_group(g, pidx, qrank, qbisect, qv, A,
+                                             left, occ)
+            self.n_retry_steps += 1
+            flags2, ev_rows2 = self._pull_step(smalls, fulls)
+            for r in rows:
+                flags_np[r] = flags2[r]
+                ev_rows[r] = ev_rows2[r]
         return self._commit_rows(g, rows, flags_np, ev_rows, progress)
 
     def _run_part(self, pidx, progress):
@@ -1269,50 +1285,50 @@ class DeviceOverlapEngine:
             self.n_host_only_parts += 1
             logger.warning("part has no device index; computed by the "
                            "exact host path")
-            t0 = time.time()
-            for g in self.groups:
-                self._host_fix(g, pidx, list(range(len(g.qids))), progress)
-            self.phase_s["host_fix"] += time.time() - t0
+            with span("step.host_fix"):
+                for g in self.groups:
+                    self._host_fix(g, pidx, list(range(len(g.qids))),
+                                   progress)
             return
 
-        self._replicate(pidx)
+        with span("index.replicate"):
+            self._replicate(pidx)
         for g in self.groups:
-            t0 = time.time()
-            qrank = np.full(self.lanes, -1, np.int32)
-            qbisect = np.zeros(self.lanes, np.int32)
-            for r, qi in enumerate(g.qids):
-                qname = self.queries[qi][0]
-                qrank[r] = pidx.name_rank.get(qname, -1)
-                if self.cfg.ava:
-                    qbisect[r] = bisect_left(pidx.sorted_names, qname)
-            cnt, left, occ = _count_expanded(
-                pidx.ih, g.qh, g.qcnt, g.n_slots, pidx.mid_occ,
-                mcrop=g.count_crop())
-            nq = cnt.cpu().numpy()
-            self.phase_s["count"] += time.time() - t0
+            with span("step.count"):
+                with span("step.ranks"):
+                    qrank = np.full(self.lanes, -1, np.int32)
+                    qbisect = np.zeros(self.lanes, np.int32)
+                    for r, qi in enumerate(g.qids):
+                        qname = self.queries[qi][0]
+                        qrank[r] = pidx.name_rank.get(qname, -1)
+                        if self.cfg.ava:
+                            qbisect[r] = bisect_left(pidx.sorted_names, qname)
+                cnt, left, occ = _count_expanded(
+                    pidx.ih, g.qh, g.qcnt, g.n_slots, pidx.mid_occ,
+                    mcrop=g.count_crop())
+                nq = cnt.cpu().numpy()
 
-            t0 = time.time()
-            live = np.zeros(self.lanes, bool)
-            live[:len(g.qids)] = True
-            live &= ~g.perm_host
-            nq_max = int(nq[live].max()) if live.any() else 0
-            rung = next((a for a in self.a_ladder if a >= nq_max), None)
-            forced = []
-            qvalid = None
-            if rung is None:
-                rung = self.a_ladder[-1]
-                forced = [r for r in range(len(g.qids))
-                          if live[r] and nq[r] > rung]
-                qvalid = g.qvalid.cpu().numpy().copy()
-                qvalid[forced] = 0
-            smalls, fulls = self._step_group(g, pidx, qrank, qbisect,
-                                             qvalid, rung, left, occ)
-            smalls_np = [s.cpu().numpy() for s in smalls]
-            self.phase_s["step"] += time.time() - t0
+            with span("step.launch"):
+                live = np.zeros(self.lanes, bool)
+                live[:len(g.qids)] = True
+                live &= ~g.perm_host
+                nq_max = int(nq[live].max()) if live.any() else 0
+                rung = next((a for a in self.a_ladder if a >= nq_max), None)
+                forced = []
+                qvalid = None
+                if rung is None:
+                    rung = self.a_ladder[-1]
+                    forced = [r for r in range(len(g.qids))
+                              if live[r] and nq[r] > rung]
+                    qvalid = g.qvalid.cpu().numpy().copy()
+                    qvalid[forced] = 0
+                smalls, fulls = self._step_group(g, pidx, qrank, qbisect,
+                                                 qvalid, rung, left, occ)
+            with span("step.pull"):
+                smalls_np = [s.cpu().numpy() for s in smalls]
 
-            t0 = time.time()
-            flags_np, ev_rows = self._unpack_pull(smalls_np, fulls)
-            self.phase_s["pull"] += time.time() - t0
+            with span("step.unpack"):
+                flags_np, ev_rows = self._unpack_pull(smalls_np, fulls)
             bad = self._commit_rows(g, list(range(len(g.qids))), flags_np,
                                     ev_rows, progress, forced=forced)
             self.flag_counts[F_ANCH] += len(forced)
@@ -1331,9 +1347,8 @@ class DeviceOverlapEngine:
                 if flags_np[r]:
                     self.flag_counts[int(flags_np[r])] += 1
             if bad:
-                t0 = time.time()
-                self._host_fix(g, pidx, bad, progress)
-                self.phase_s["host_fix"] += time.time() - t0
+                with span("step.host_fix"):
+                    self._host_fix(g, pidx, bad, progress)
 
     def _ensure_host_state(self, g):
         """Persistent host ReadStates for this group's permanently
@@ -1480,9 +1495,10 @@ def overlap_run_device2(target_iter, query_reads, cfg: OverlapConfig,
     called with the query index once per row and part. devices /
     lanes_per_shard: the query lanes sharded over a device list
     (DeviceOverlapEngine)."""
-    eng = DeviceOverlapEngine(cfg, query_reads, device=device,
-                              devices=devices,
-                              lanes_per_shard=lanes_per_shard)
+    with span("engine.init"):
+        eng = DeviceOverlapEngine(cfg, query_reads, device=device,
+                                  devices=devices,
+                                  lanes_per_shard=lanes_per_shard)
     rows = eng.run(target_iter, parts=parts, progress=progress)
     if stats is not None:
         stats.update(eng.stats())

@@ -12,12 +12,15 @@ recursion.
 import os
 from logging import getLogger
 
+import numpy as np
 import torch
 
+from longqc_tpu_torch import tracing
 from longqc_tpu_torch.io.pack import pack_reads, SEQ_NT4_SDUST
 from longqc_tpu_torch.ops._ext import require_device
 from longqc_tpu_torch.ops.quality import qual_hist_batch, mean_q_from_hist
 from longqc_tpu_torch.ops.sdust import sdust_screen_batch, masked_length
+from longqc_tpu_torch.tracing import span
 
 logger = getLogger(__name__)
 
@@ -32,10 +35,14 @@ def _len_bucket(n):
     return b
 
 
-def mask_table_rows(reads, batch_size=128, device="cuda"):
-    """-> list of 6-column row strings for a chunk of reads."""
+def screen_reads(reads, batch_size=128, device="cuda"):
+    """The device part of a chunk's table, pulled to the host: per read,
+    whether the screen flags it for the exact recursion, its meanQ and
+    its count of bases above phred 7 (numpy arrays)."""
     device = require_device(device)
-    rows = [None] * len(reads)
+    flags = np.zeros(len(reads), bool)
+    meanq = np.zeros(len(reads), np.float64)
+    nq7 = np.zeros(len(reads), np.int64)
     buckets = {}
     for i, r in enumerate(reads):
         buckets.setdefault(_len_bucket(len(r[1])), []).append(i)
@@ -48,19 +55,29 @@ def mask_table_rows(reads, batch_size=128, device="cuda"):
             codes = torch.from_numpy(batch.codes).to(device)
             quals = torch.from_numpy(batch.quals).to(device)
             lengths = torch.from_numpy(batch.lengths).to(device)
-            flags = sdust_screen_batch(codes, lengths).cpu().numpy()
+            flags[sel] = sdust_screen_batch(codes, lengths).cpu().numpy()
             hist = qual_hist_batch(quals, lengths).cpu().numpy()
-            meanq = mean_q_from_hist(hist, batch.lengths)
+            meanq[sel] = mean_q_from_hist(hist, batch.lengths)
             # nQ7: bases with phred strictly above 7 (lqutils.c:72-80)
-            nq7 = hist[:, 8:].sum(axis=1)
-            for slot, i in enumerate(sel):
-                name, seq = reads[i][0], reads[i][1]
-                ln = len(seq)
-                ml = masked_length(seq) if flags[slot] else 0
-                rows[i] = "%s\t%d\t%d\t%.3f\t%.3f\t%d" % (
-                    name, ml, ln, ml / ln if ln else 0.0,
-                    meanq[slot], int(nq7[slot]))
+            nq7[sel] = hist[:, 8:].sum(axis=1)
+    return flags, meanq, nq7
+
+
+def format_rows(reads, flags, meanq, nq7):
+    """The host part: the exact recursion for flagged reads, and the
+    6-column rows."""
+    rows = []
+    for i, (name, seq) in enumerate((r[0], r[1]) for r in reads):
+        ln = len(seq)
+        ml = masked_length(seq) if flags[i] else 0
+        rows.append("%s\t%d\t%d\t%.3f\t%.3f\t%d" % (
+            name, ml, ln, ml / ln if ln else 0.0, meanq[i], int(nq7[i])))
     return rows
+
+
+def mask_table_rows(reads, batch_size=128, device="cuda"):
+    """-> list of 6-column row strings for a chunk of reads."""
+    return format_rows(reads, *screen_reads(reads, batch_size, device))
 
 
 class MaskAccumulator:
@@ -77,8 +94,13 @@ class MaskAccumulator:
         self._fh = open(self.outf, "w")
 
     def add_chunk(self, reads):
-        for row in mask_table_rows(reads, device=self.device):
-            self._fh.write(row + "\n")
+        with span("mask.chunk"):
+            with span("mask.screen"):
+                cols = screen_reads(reads, device=self.device)
+            tracing.count("mask.flagged_reads", int(cols[0].sum()))
+            with span("mask.host"):
+                for row in format_rows(reads, *cols):
+                    self._fh.write(row + "\n")
 
     def close(self):
         self._fh.close()

@@ -18,6 +18,7 @@ from logging import getLogger
 import numpy as np
 import torch
 
+from longqc_tpu_torch import tracing
 from longqc_tpu_torch.config import OverlapConfig
 from longqc_tpu_torch.engine import overlap_host as oh
 from longqc_tpu_torch.engine.device_overlap import (A_BUCKETS, A_LADDER,
@@ -131,8 +132,17 @@ def overlap_run_device(target_iter, query_reads, cfg: OverlapConfig,
     batched-chainer path reads it (the device engine builds its index
     on the device each part).
     progress: called with the query index once per row and part.
+    stats also receives the call's spans (tracing.run: `spans` and, on
+    a traced top-level call, `span_log`).
     """
     stats = {} if stats is None else stats
+    with tracing.run(stats, "overlap"):
+        return _overlap_run_device(target_iter, query_reads, cfg, device,
+                                   stats, parts, index_cache, progress)
+
+
+def _overlap_run_device(target_iter, query_reads, cfg, device, stats,
+                        parts, index_cache, progress):
     choice = os.environ.get("LONGQC_OVERLAP_ENGINE", "")
     if choice != "v1":
         try:

@@ -34,6 +34,7 @@ import os
 import numpy as np
 import torch
 
+from longqc_tpu_torch import tracing
 from longqc_tpu_torch.config import OverlapConfig
 from longqc_tpu_torch.io.pack import pack_reads
 from longqc_tpu_torch.ops._ext import require_device
@@ -619,7 +620,8 @@ def iter_index_parts(target_iter, batch_size, mini_batch_size=50_000_000):
 
 def overlap_run(target_iter, query_reads, cfg: OverlapConfig,
                 chain_many=None, parts=None, index_cache=None,
-                return_states=False, device="cuda", progress=None):
+                return_states=False, device="cuda", progress=None,
+                stats=None):
     """Full engine run -> list of 9-column TSV row strings
     (cf. minimap2-coverage.c:545-617).
 
@@ -639,7 +641,17 @@ def overlap_run(target_iter, query_reads, cfg: OverlapConfig,
     device: where the tensor sketch runs (the rest is host numpy); the
     card unless the caller asks for the CPU.
     progress: called with the query index once per query and part.
+    stats: optional dict that receives the run's spans (tracing): called
+    directly, under its own top-level span `overlap_host`.
     """
+    with tracing.run(stats, "overlap_host"):
+        return _overlap_run(target_iter, query_reads, cfg, chain_many,
+                            parts, index_cache, return_states, device,
+                            progress)
+
+
+def _overlap_run(target_iter, query_reads, cfg, chain_many, parts,
+                 index_cache, return_states, device, progress):
     k, w = cfg.index.k, cfg.index.w
     hpc = cfg.index.is_hpc
     q_sketches = _sketch_reads(query_reads, k, w, hpc, device)

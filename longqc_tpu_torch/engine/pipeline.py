@@ -31,12 +31,12 @@ import importlib.util
 import json
 import logging
 import os
-import time
 from collections import OrderedDict
 
 import numpy as np
 
 from longqc_tpu_torch import config as C
+from longqc_tpu_torch import tracing
 from longqc_tpu_torch.engine import overlap_host as oh
 from longqc_tpu_torch.engine.masking import MaskAccumulator
 from longqc_tpu_torch.engine.overlap import overlap_run_device as overlap_run
@@ -56,6 +56,7 @@ from longqc_tpu_torch.report import plots
 from longqc_tpu_torch.report.coverage import CoverageAnalytics, \
     read_table_rows
 from longqc_tpu_torch.report.html import render_report, enc_b64_str
+from longqc_tpu_torch.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -123,13 +124,17 @@ def run_sampleqc(input_path, out_dir, preset_name, *, nsample=5000,
     when there is none).
     report: draw the 8 figures and render the HTML (needs matplotlib and
     jinja2); False stops after the QC JSON.
-    stats: a dict that receives each stage's seconds (`stage_s`; within
-    the chunk loop, `mask` ran on a worker thread beside
-    `adapter_sample_gc`, and `mask_wait` is what the loop waited), the
-    overlap engine's counters (`overlap`, `spike_in`), which reader and
-    sdust recursion ran (`reader`, `sdust`) and, with db, the prefetch
-    thread's seconds, the overlap's wait to join it and its parts
-    (`prefetch`).
+    stats: a dict that receives the run's spans (`spans`: per span name
+    its count and its wall, self and thread CPU seconds, and the run's
+    counters; longqc_tpu_torch/tracing.py names them), each stage's
+    seconds read from those spans (`stage_s`; within the chunk loop,
+    `mask` ran on a worker thread beside `adapter_sample_gc`, and
+    `mask_wait` is what the loop waited), the overlap engine's counters
+    and spans (`overlap`, `spike_in`), which reader and sdust recursion
+    ran (`reader`, `sdust`) and, with db, the prefetch thread's seconds,
+    the overlap's wait to join it and its parts (`prefetch`). When
+    torch.profiler is recording as the call starts, `span_log` holds
+    every span's interval from every thread, on the profiler's clock.
     """
     if not os.path.exists(input_path):
         raise FileNotFoundError(input_path)
@@ -144,8 +149,36 @@ def run_sampleqc(input_path, out_dir, preset_name, *, nsample=5000,
                           "alone" % ", ".join(missing))
     device = require_device(device)
     stats = {} if stats is None else stats
-    stage_s = stats.setdefault("stage_s", {})
+    try:
+        with tracing.run(stats, "sampleqc") as scope:
+            return _sampleqc(input_path, out_dir, preset_name, nsample,
+                             transcript, suffix, trim_out, adp5, adp3,
+                             fast, mem, index_size, short, db, force_pb,
+                             force_sequel, device, report, stats)
+    finally:
+        stats["stage_s"] = tracing.legacy(scope.fold, STAGE_SPANS)
+        if "prefetch" in stats:
+            stats["prefetch"].update(tracing.legacy(scope.fold,
+                                                    PREFETCH_SPANS))
 
+
+# stats["stage_s"] and stats["prefetch"]: each key's span names
+STAGE_SPANS = {"chunk_loop": ("stage.chunk_loop",),
+               "adapter_sample_gc": ("chunk.adapter_sample_gc",),
+               "adapter": ("chunk.adapter",), "mask": ("mask.chunk",),
+               "mask_wait": ("chunk.mask_wait",),
+               "exclusion": ("stage.exclusion",),
+               "overlap": ("stage.overlap",),
+               "spike_in": ("stage.spike_in",),
+               "analytics": ("stage.analytics",),
+               "report": ("stage.report",)}
+PREFETCH_SPANS = {"thread_s": ("prefetch.run",),
+                  "join_wait_s": ("prefetch.join",)}
+
+
+def _sampleqc(input_path, out_dir, preset_name, nsample, transcript, suffix,
+              trim_out, adp5, adp3, fast, mem, index_size, short, db,
+              force_pb, force_sequel, device, report, stats):
     preset = C.PRESETS[preset_name]
     if force_pb or force_sequel:
         # reference semantics: the preset table only SETS these markers
@@ -186,45 +219,42 @@ def run_sampleqc(input_path, out_dir, preset_name, *, nsample=5000,
             logger.info("index prefetch started (-d): %d spec(s)",
                         len(prefetcher.specs))
 
-        t0 = time.time()
-        cq = _chunk_qc(input_path, file_format_code, fastx_path, paths,
-                       suffix, nsample, mem, adp5, adp3, trim_out, device,
-                       stage_s)
-        stage_s["chunk_loop"] = time.time() - t0
+        with span("stage.chunk_loop"):
+            cq = _chunk_qc(input_path, file_format_code, fastx_path, paths,
+                           suffix, nsample, mem, adp5, adp3, trim_out,
+                           device)
         # which FASTA/FASTQ reader and which sdust recursion ran
         stats["reader"] = dict(native.BUILD, name=reader_name())
         stats["sdust"] = dict(sdust.NATIVE_BUILD, name=sdust.sdust_impl())
 
-        t0 = time.time()
-        mask = MaskTable(cq["mask_path"])
-        s_reads, ss_reads, s_n_seqs = _exclude_masked(
-            cq["s_reads"], mask, input_path, file_format_code, short, paths)
-        stage_s["exclusion"] = time.time() - t0
+        with span("stage.exclusion"):
+            mask = MaskTable(cq["mask_path"])
+            s_reads, ss_reads, s_n_seqs = _exclude_masked(
+                cq["s_reads"], mask, input_path, file_format_code, short,
+                paths)
 
-        t0 = time.time()
-        targets = (fastx_path if file_format_code in
-                   (FORMAT_BAM, FORMAT_FAST5) else input_path)
-        rows = _overlap(targets, s_reads, ss_reads, preset, fast,
-                        index_size, short, device, paths, stats, prefetcher)
-        stage_s["overlap"] = time.time() - t0
+        with span("stage.overlap"):
+            targets = (fastx_path if file_format_code in
+                       (FORMAT_BAM, FORMAT_FAST5) else input_path)
+            rows = _overlap(targets, s_reads, ss_reads, preset, fast,
+                            index_size, short, device, paths, stats,
+                            prefetcher)
 
-        t0 = time.time()
-        control_rows = (_spike_in(s_reads, ss_reads, preset, short, device,
-                                  paths, stats) if preset.pb else None)
-        stage_s["spike_in"] = time.time() - t0
+        with span("stage.spike_in"):
+            control_rows = (_spike_in(s_reads, ss_reads, preset, short,
+                                      device, paths, stats)
+                            if preset.pb else None)
 
-        t0 = time.time()
-        qc = _analytics(cq, mask, rows, control_rows, preset, transcript,
-                        adp5, adp3, device)
-        with open(paths.json, "w") as f:
-            json.dump(qc["json"], f, indent=4)
-        stage_s["analytics"] = time.time() - t0
+        with span("stage.analytics"):
+            qc = _analytics(cq, mask, rows, control_rows, preset,
+                            transcript, adp5, adp3, device)
+            with open(paths.json, "w") as f:
+                json.dump(qc["json"], f, indent=4)
 
         if report:
-            t0 = time.time()
-            _report(cq, mask, qc, preset, suffix, paths, s_n_seqs,
-                    file_format_code, adp5, adp3, transcript)
-            stage_s["report"] = time.time() - t0
+            with span("stage.report"):
+                _report(cq, mask, qc, preset, suffix, paths, s_n_seqs,
+                        file_format_code, adp5, adp3, transcript)
         logger.info("finished all processes.")
     finally:
         root_logger_cleanup(fh)
@@ -236,7 +266,7 @@ def run_sampleqc(input_path, out_dir, preset_name, *, nsample=5000,
 
 
 def _chunk_qc(input_path, file_format_code, fastx_path, paths, suffix,
-              nsample, mem, adp5, adp3, trim_out, device, stage_s):
+              nsample, mem, adp5, adp3, trim_out, device):
     """Stream the input in chunks: the mask table, the adapter search,
     the reservoir sample and the GC accumulation.
 
@@ -247,8 +277,8 @@ def _chunk_qc(input_path, file_format_code, fastx_path, paths, suffix,
     chunk's parse prefetches on a reader thread while the current chunk
     computes, and the masking stage (device screen + exact host
     recursion for flagged reads, on the device passed to the
-    accumulator) runs concurrently with the adapter search / reservoir
-    sampling / GC stages."""
+    accumulator) runs on the `mask` thread concurrently with the adapter
+    search / reservoir sampling / GC stages."""
     lm = MaskAccumulator(paths.analysis, suffix=suffix or "", device=device)
     lg = GCAccumulator(chunk_size=150, device=device)
     cq = {"num_trim5": 0, "num_trim3": 0, "max_iden_adp5": 0.0,
@@ -258,12 +288,7 @@ def _chunk_qc(input_path, file_format_code, fastx_path, paths, suffix,
     s_reads = []
     n_seqs = n_bases = 0
     chunk_n = 0
-    t_mask = t_rest = t_adapter = t_mask_stage = 0.0
-
-    def mask_chunk(reads):
-        t = time.time()
-        lm.add_chunk(reads)
-        return time.time() - t
+    mask_chunk = tracing.carry("mask", lm.add_chunk)
 
     chunk_iter = _prefetch_iter(open_seq_chunk(
         input_path, file_format_code,
@@ -274,29 +299,25 @@ def _chunk_qc(input_path, file_format_code, fastx_path, paths, suffix,
                 if file_format_code in (FORMAT_BAM, FORMAT_FAST5):
                     write_fastq(fastx_path, reads, is_chunk=True)
                 logger.info("chunk %d: %d reads", chunk_n, len(reads))
-                t0 = time.time()
-                mask_fut = pool.submit(mask_chunk, reads)
-                if adp5 or adp3:
-                    ta = time.time()
-                    _adapter_chunk(reads, adp5, adp3, trim_out, device, cq)
-                    t_adapter += time.time() - ta
-                s_reads = subsample_from_chunk(reads, cum_n_seq, s_reads,
-                                               nsample,
-                                               s_seed=C.SUBSAMPLE_SEED)
-                lg.add_batch(_pack(reads))
-                t_rest += time.time() - t0
-                t0 = time.time()
-                t_mask_stage += mask_fut.result()
-                t_mask += time.time() - t0
+                with span("chunk.adapter_sample_gc"):
+                    mask_fut = pool.submit(mask_chunk, reads)
+                    with span("chunk.adapter"):
+                        if adp5 or adp3:
+                            _adapter_chunk(reads, adp5, adp3, trim_out,
+                                           device, cq)
+                    with span("chunk.subsample"):
+                        s_reads = subsample_from_chunk(
+                            reads, cum_n_seq, s_reads, nsample,
+                            s_seed=C.SUBSAMPLE_SEED)
+                    with span("chunk.gc"):
+                        lg.add_batch(_pack(reads))
+                with span("chunk.mask_wait"):
+                    mask_fut.result()
                 chunk_n += 1
                 cum_n_seq = n_seqs
     finally:
         lm.close()
     logger.info("parsed input. #seqs:%d #bases:%d", n_seqs, n_bases)
-    logger.info("chunk stages: adapter/sample/GC %.1fs overlapped with "
-                "masking, +%.1fs mask wait", t_rest, t_mask)
-    stage_s.update(adapter_sample_gc=t_rest, adapter=t_adapter,
-                   mask=t_mask_stage, mask_wait=t_mask)
     cq["s_reads"] = s_reads
     return cq
 
@@ -410,11 +431,10 @@ def _overlap(targets, s_reads, ss_reads, preset, fast, index_size, short,
     logger.info("overlap computation started")
     parts = cache = None
     if prefetcher is not None:
-        t0 = time.time()
-        parts = prefetcher.join()
-        stats["prefetch"] = {"thread_s": prefetcher.seconds,
-                             "join_wait_s": time.time() - t0,
-                             "parts": len(parts),
+        with span("prefetch.join"):
+            parts = prefetcher.join()
+        # its seconds (thread_s, join_wait_s) are added from the spans
+        stats["prefetch"] = {"parts": len(parts),
                              "caches": [p for _k, _w, p in prefetcher.specs]}
         cache = prefetcher.cache_for(cfg.index.k, cfg.index.w)
         logger.info("index prefetch joined: %d part(s)", len(parts))
@@ -598,19 +618,18 @@ class _IndexPrefetcher:
     parts, and build and persist each part's host MinimizerIndex as npz,
     on a thread beside the chunk-QC loop (the reference's
     `LqExec(minimap2-coverage -d tempdb)`, longQC.py:266-277; the cache
-    format is npz instead of MMI). The indexes sketch on the given
-    device."""
+    format is npz instead of MMI), in the run's `prefetch` spans. The
+    indexes sketch on the given device."""
 
     def __init__(self, input_path, specs, batch_size, device):
-        import threading
         self.input_path = input_path
         self.specs = specs            # [(k, w, cache_prefix), ...]
         self.batch_size = batch_size
         self.device = device
         self.parts = None
         self.error = None
-        self.seconds = None           # the thread's wall time
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self.seconds = None           # the thread's wall time (its span)
+        self._thread = None
 
     @classmethod
     def for_sample(cls, input_path, preset, fast, index_size, short, paths,
@@ -631,23 +650,30 @@ class _IndexPrefetcher:
         return cls(input_path, specs, cfgs[0].index.batch_size, device)
 
     def start(self):
+        import threading
+        self._thread = threading.Thread(
+            target=tracing.carry("prefetch", self._run), daemon=True)
         self._thread.start()
 
     def _run(self):
-        t0 = time.time()
-        try:
-            parts = list(oh.iter_index_parts(_read_stream(self.input_path),
-                                             self.batch_size))
-            for k, w, prefix in self.specs:
-                for i, part in enumerate(parts):
-                    path = "%s.part%04d.npz" % (prefix, i)
-                    if not os.path.exists(path):
-                        oh.build_index(part, k, w,
-                                       device=self.device).save(path)
-            self.parts = parts
-        except Exception as e:  # surfaced on join()
-            self.error = e
-        self.seconds = time.time() - t0
+        with tracing.run() as scope, span("prefetch.run"):
+            try:
+                with span("prefetch.read"):
+                    parts = list(oh.iter_index_parts(
+                        _read_stream(self.input_path), self.batch_size))
+                for k, w, prefix in self.specs:
+                    for i, part in enumerate(parts):
+                        path = "%s.part%04d.npz" % (prefix, i)
+                        if not os.path.exists(path):
+                            with span("prefetch.build"):
+                                index = oh.build_index(part, k, w,
+                                                       device=self.device)
+                            with span("prefetch.save"):
+                                index.save(path)
+                self.parts = parts
+            except Exception as e:  # surfaced on join()
+                self.error = e
+        self.seconds = scope.fold["by_name"]["prefetch.run"]["wall_s"]
 
     def join(self):
         self._thread.join()

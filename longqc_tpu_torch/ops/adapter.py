@@ -24,8 +24,10 @@ across optimal paths is measured and bounded.
 import numpy as np
 import torch
 
+from longqc_tpu_torch import tracing
 from longqc_tpu_torch.io.pack import SEQ_NT4_SKETCH
 from longqc_tpu_torch.ops._ext import require_device
+from longqc_tpu_torch.tracing import span
 
 
 def encode(seq):
@@ -220,45 +222,49 @@ def cut_adapter(reads, len_list=None, adp_t=None, adp_b=None, th=0.75,
         iden_max = -1.0
         match_num = 0
         cut_pos = []
-        dists, ends, skipped = adapter_dists(reads, adp, where, length,
-                                             device)
+        with span("adapter.dp"):
+            dists, ends, skipped = adapter_dists(reads, adp, where, length,
+                                                 device)
         m = len(adp)
         # identity bound: identity = 1 - d/alen, alen <= m + d
         # => candidates need 1 - d/(m+d) > th  <=> d < m*(1-th)/th
         cand = (~skipped) & (dists < int(np.ceil(m * (1 - th) / th)) + 1)
         adp_codes = encode(adp)
+        n_range = 0
         for i in np.nonzero(cand)[0]:
             r = reads[i]
             s = r[1]
             wseq = s[:length] if where == "head" else s[-length:]
-            res = hw_align_host(adp_codes, encode(wseq))
-            if res is None:
-                continue
-            dist, start, end, alen = res
-            identity = 1.0 - float(dist / alen)
-            # tie accounting: when every optimal path agrees on the
-            # threshold comparison, the trim decision is exact for ANY
-            # tie-break edlib could use. align_len always lies in
-            # [m, m+d], so a straddle needs d in the narrow band where
-            # 1-d/m <= th < 1-d/(m+d) — only then is the O(mn) range
-            # DP run. Tail-start ambiguity (affects the cut position)
-            # is sampled. Straddles are tallied in TIE_STATS (zero on
-            # real adapter workloads, tests/test_adapter_ties.py).
-            TIE_STATS["candidates"] += 1
-            may_straddle = (1.0 - dist / max(m, 1) <= th
-                            < 1.0 - dist / (m + dist))
-            sample_start = (where == "tail" and identity > th
-                            and TIE_STATS["candidates"] <= 200)
-            if may_straddle or sample_start:
-                rng_ = hw_align_optrange(adp_codes, encode(wseq))
-                if rng_ is not None:
-                    _d, _e, amin, amax, smin, smax = rng_
-                    lo = 1.0 - float(_d / amin) if amin else 1.0
-                    hi = 1.0 - float(_d / amax) if amax else 1.0
-                    if (lo > th) != (hi > th):
-                        TIE_STATS["ambiguous_identity"] += 1
-                    if sample_start and smin != smax:
-                        TIE_STATS["ambiguous_start"] += 1
+            with span("adapter.align"):
+                res = hw_align_host(adp_codes, encode(wseq))
+                if res is None:
+                    continue
+                dist, start, end, alen = res
+                identity = 1.0 - float(dist / alen)
+                # tie accounting: when every optimal path agrees on the
+                # threshold comparison, the trim decision is exact for ANY
+                # tie-break edlib could use. align_len always lies in
+                # [m, m+d], so a straddle needs d in the narrow band where
+                # 1-d/m <= th < 1-d/(m+d) — only then is the O(mn) range
+                # DP run. Tail-start ambiguity (affects the cut position)
+                # is sampled. Straddles are tallied in TIE_STATS (zero on
+                # real adapter workloads, tests/test_adapter_ties.py).
+                TIE_STATS["candidates"] += 1
+                may_straddle = (1.0 - dist / max(m, 1) <= th
+                                < 1.0 - dist / (m + dist))
+                sample_start = (where == "tail" and identity > th
+                                and TIE_STATS["candidates"] <= 200)
+                if may_straddle or sample_start:
+                    n_range += 1
+                    rng_ = hw_align_optrange(adp_codes, encode(wseq))
+                    if rng_ is not None:
+                        _d, _e, amin, amax, smin, smax = rng_
+                        lo = 1.0 - float(_d / amin) if amin else 1.0
+                        hi = 1.0 - float(_d / amax) if amax else 1.0
+                        if (lo > th) != (hi > th):
+                            TIE_STATS["ambiguous_identity"] += 1
+                        if sample_start and smin != smax:
+                            TIE_STATS["ambiguous_start"] += 1
             if identity > th:
                 match_num += 1
                 if identity > iden_max:
@@ -274,6 +280,8 @@ def cut_adapter(reads, len_list=None, adp_t=None, adp_b=None, th=0.75,
                     r[1] = s[:cut]
                     if len(r) > 2 and r[2]:
                         r[2] = r[2][:cut]
+        tracing.count("adapter.candidates", int(cand.sum()))
+        tracing.count("adapter.straddle_dp", n_range)
         return (iden_max, match_num, cut_pos)
 
     if adp_t and adp_b:

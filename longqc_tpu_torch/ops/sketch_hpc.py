@@ -15,6 +15,7 @@ import torch
 from longqc_tpu_torch.io.pack import SEQ_NT4_SKETCH
 from longqc_tpu_torch.ops._ext import require_device
 from longqc_tpu_torch.ops.sketch import sketch_batch, sketch_to_lists
+from longqc_tpu_torch.tracing import span
 
 
 def hpc_compress(seq, k):
@@ -56,6 +57,12 @@ def hpc_compress(seq, k):
     return ecodes.astype(np.uint8), ends.astype(np.int64), spans
 
 
+def hpc_compress_all(seqs, k):
+    """hpc_compress of each sequence, timed as one `hpc.compress` span."""
+    with span("hpc.compress"):
+        return [hpc_compress(s, k) for s in seqs]
+
+
 def pack_hpc(comp, L):
     """hpc_compress outputs of B reads -> the (B, L) uint8 codes, (B,)
     int32 lengths and (B, L) int64 positions and spans that sketch_batch
@@ -78,7 +85,7 @@ def sketch_reads_hpc(reads, k, w, batch_size=128, device="cuda"):
     unless the caller asks for the CPU) -> per-read
     (hash, pos, strand, span) arrays (the sketch_to_lists contract)."""
     device = require_device(device)
-    comp = [hpc_compress(r[1], k) for r in reads]
+    comp = hpc_compress_all([r[1] for r in reads], k)
     out = [None] * len(reads)
     buckets = {}
     for i, (c, _p, _s) in enumerate(comp):
