@@ -58,6 +58,13 @@ prints the final result line):
      clamps each pair's band: extz and extd kernels against their plain
      version (the full band) on the same tensors, all eight outputs
      exact; 16 short pairs against the full-DP host reference
+  6b. the adapter search's alignment kernel (csrc/adapter.cu) at a
+     sampleqc job of ont-ligation's shapes (1,850 windows of 150 columns
+     at the 28 bp 5' adapter, 3,700 at the 18 bp 3' one, every kind of
+     tests/torch_util.adapter_windows): all eight fields against the
+     plain twin (ops/adapter.hw_align_batch on CPU tensors) on every
+     window; the kernel's time, the plain twin's on the same windows, the
+     bound
   7. the HPC spike-in-control filter run through cli.main
      (mmcov -H -k 15 -w 10 -c 1 -l 0 --filter) against the Sequel
      control reference of the port (longqc_tpu_torch/refs/): 5,000
@@ -100,7 +107,9 @@ prints the final result line):
      10a: the 5' adapter statistics (and the 3' ones, when they pass
      the identity threshold) equal a cut_adapter run with CPU tensors on
      the same reads (a side process beside phases 10a-14, checked after
-     phase 14); the mask stage and the adapter DP run once more,
+     phase 14); the card's run aligned every candidate with the
+     adapter_align kernel, one launch an adapter.align span; the mask
+     stage and the adapter DP run once more,
      each alone on the card and timed, the mask rows equal to the run's.
      10b: every control-derived sampled read is marked in the spike-in
      table
@@ -211,6 +220,9 @@ SOURCES = {
                   "longqc_tpu/ops/extend.py:31"),
     "extd_wide": ("longqc_tpu_torch/csrc/extend.cu",
                   "longqc_tpu/ops/extend.py:31"),
+    "adapter_align": ("longqc_tpu_torch/csrc/adapter.cu",
+                      "none (the host traceback, longqc_tpu/ops/adapter.py "
+                      "hw_align_host, hw_align_optrange)"),
 }
 HPC_KERNELS = ("chain", "peak", "minrank")
 # CUDA kernel symbol prefix -> kernel name (the profiler's key); the B1
@@ -223,6 +235,9 @@ OPS_PER_COLUMN = 30     # B1, plus 2 per ring slot (counted alike for
 #                         32- and 64-bit hash words)
 OPS_PER_AGE = 20        # B2, per predecessor the reference visits
 OPS_PER_CELL = {"extz": 12, "extd": 18}   # B5, per band cell
+OPS_PER_ALIGN_CELL = 20  # adapter_align, per DP cell
+# phase 6b: (adapter length, windows) of a sampleqc job of ont-ligation
+ADAPTER_RUNS = ((28, 1850), (18, 3700))
 
 
 def log(*a):
@@ -1148,6 +1163,43 @@ def check_extend(dev, zdrop=400):
     return out, launches
 
 
+def check_adapter_align(dev):
+    """Phase 6b: hw_align_batch on CUDA tensors at each (m, windows) of
+    ADAPTER_RUNS, against its plain twin on the same windows, both timed.
+    Returns {"adapter_align": results}, the first run's numbers unsuffixed
+    and the second's suffixed _m<m>."""
+    import numpy as np
+    import torch
+    from torch_util import adapter_codes, adapter_windows
+    from longqc_tpu_torch.ops.adapter import hw_align_batch
+
+    rng = np.random.RandomState(619)
+    out = {"max_abs_err": 0}
+    for run, (m, C) in enumerate(ADAPTER_RUNS):
+        adp = adapter_codes(m)
+        wins, lens = adapter_windows(rng, adp, C, 150)
+        host = [torch.from_numpy(a) for a in (adp, wins, lens)]
+        ins = [t.to(dev) for t in host]
+        got = hw_align_batch(*ins)
+        t = time.time()
+        plain = hw_align_batch(*host)
+        plain_ms = (time.time() - t) * 1e3
+        require_equal("adapter_align m=%d" % m, got.cpu(), plain)
+        ms = cuda_ms(lambda: hw_align_batch(*ins), 20)
+        b_ms, by = bound(nbytes(*ins) + 8 * 4 * C,
+                         OPS_PER_ALIGN_CELL * C * m * 150)
+        sfx = "" if run == 0 else "_m%d" % m
+        out.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
+                    "bound_ms" + sfx: b_ms})
+        if run == 0:
+            out.update({"bound_by": by, "shape": "%d windows x 150, m=%d"
+                        % (C, m)})
+        log("adapter_align m=%d, %d windows of 150: %.4f ms (bound %.2f us, "
+            "%s), plain twin %.0f ms on the same windows; equal" % (
+                m, C, ms, b_ms * 1e3, by, plain_ms))
+    return {"adapter_align": out}
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the HPC spike-in-control filter run
 
@@ -1662,6 +1714,18 @@ def sampleqc_ont(dev, workdir, targets, missing):
              for i, (n, s, q) in enumerate(targets)]
     launches, out, qc, stats, _ = sampleqc_run(dev, workdir, "10a", reads,
                                                "ont-ligation", missing)
+    cnt = stats["spans"]["counters"]
+    n_align = stats["spans"]["by_name"]["adapter.align"]["n"]
+    log("phase 10a adapter alignment: %d adapter_align launches, %d "
+        "adapter.align spans, %d of %d candidates aligned on the card, %d "
+        "read the bounds over optimal paths" % (
+            launches.get("adapter_align", 0), n_align,
+            cnt["adapter.align_kernel"], cnt["adapter.candidates"],
+            cnt["adapter.straddle_dp"]))
+    if launches.get("adapter_align", 0) != n_align or \
+            cnt["adapter.align_kernel"] != cnt["adapter.candidates"]:
+        raise AssertionError("phase 10a: cut_adapter did not align every "
+                             "candidate with the adapter_align kernel")
     # cut_adapter on CPU tensors over the same reads (the run's input
     # file), in a side process beside phases 10a-14; checked at the end
     recheck = (side_start("adapters", workdir),
@@ -2483,6 +2547,9 @@ def run_phases(dev, workdir, big_data, t_all):
     launches.update(ext_launches)
     log("phase 6 %.1f s" % (time.time() - t))
     t = time.time()
+    res.update(check_adapter_align(dev))
+    log("phase 6b %.1f s" % (time.time() - t))
+    t = time.time()
     hpc_launches, rungs7, queries7 = hpc_filter_run(dev, workdir)
     log("phase 7 %.1f s" % (time.time() - t))
     t = time.time()
@@ -2533,6 +2600,7 @@ def run_phases(dev, workdir, big_data, t_all):
     # each kernel's launches on its own path: phase 5, the u64 B1's
     # phase 8, the run-time-ring B1s' small runs at w = 40, B5's phase 6
     launches["sketch_u64"] = launches8["sketch_u64"]
+    launches["adapter_align"] = launches10a["adapter_align"]
     for name in ("sketch_ring", "sketch_ring_u64"):
         launches[name] = ring_launches[name]
     kernels = []

@@ -3,9 +3,9 @@
 // Each binding makes the device of its tensors current (CUDAGuard) and
 // launches on that device's current stream, so a tensor on any card is
 // launched where it lives. The Python wrappers (ops/sketch_cuda.py,
-// ops/chain_cuda.py, ops/ringprop.py, ops/extend_cuda.py) check shapes,
-// dtypes, devices and contiguity, allocate the outputs and count the
-// launches.
+// ops/chain_cuda.py, ops/ringprop.py, ops/extend_cuda.py, ops/adapter.py)
+// check shapes, dtypes, devices and contiguity, allocate the outputs and
+// count the launches.
 
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAGuard.h>
@@ -105,6 +105,18 @@ void extend_wide_fill(T q, T ql, T t, T tl, T order, T out, T scratch,
       dual ? "extd_wide" : "extz_wide");
 }
 
+void adapter_align(T adp, T win, T wlen, T out, T moves, T edges,
+                   int64_t nslot) {
+  const c10::cuda::CUDAGuard guard(win.device());
+  check_launch(lq_adapter_align(adp.data_ptr(), win.data_ptr(),
+                                wlen.data_ptr(), out.data_ptr(),
+                                moves.data_ptr(), edges.data_ptr(),
+                                (int)win.size(0), (int)adp.size(0),
+                                (int)win.size(1), (int)nslot,
+                                stream_of(win)),
+               "adapter_align");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -115,4 +127,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("extend_fill", &extend_fill, "B5 banded extension (extz / extd)");
   m.def("extend_wide_fill", &extend_wide_fill,
         "B5 banded extension, the wide body (any W)");
+  m.def("adapter_align", &adapter_align,
+        "the adapter search's batched alignment and traceback");
 }

@@ -1,8 +1,9 @@
 // Plain C launch interface of the hand-written kernels (sketch.cu,
-// chain.cu, ringprop.cu, extend.cu), bound to PyTorch by bind.cpp. Every
-// pointer is a contiguous int32 device buffer of the layout its .cu file
-// documents (lq_sketch_rows with wide != 0: `plan` and `hash` are int64
-// buffers); each function launches on `stream` and returns the
+// chain.cu, ringprop.cu, extend.cu, adapter.cu), bound to PyTorch by
+// bind.cpp. Every pointer is a contiguous int32 device buffer of the
+// layout its .cu file documents (lq_sketch_rows with wide != 0: `plan`
+// and `hash` are int64 buffers; lq_adapter_align's `moves` holds bytes);
+// each function launches on `stream` and returns the
 // cudaError_t of its launch (0 on success).
 #pragma once
 
@@ -43,6 +44,13 @@ int lq_extend_wide_fill(const void* q, const void* ql, const void* t,
                         int mismatch, int gapo, int gape, int gapo2,
                         int gape2, int zdrop, int dual, void* scratch,
                         int nslot, int G, void* stream);
+
+// C windows (C, Lw) of wlen[c] codes each against the adapter's m codes
+// -> out (8, C); nslot warp slots, each with ceil(m / 32) x (Lw + 32) x
+// 32 bytes of `moves` and 2 x 5 x (Lw + 1) ints of `edges`
+int lq_adapter_align(const void* adp, const void* win, const void* wlen,
+                     void* out, void* moves, void* edges, int C, int m,
+                     int Lw, int nslot, void* stream);
 
 #ifdef __cplusplus
 }

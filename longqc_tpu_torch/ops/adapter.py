@@ -8,17 +8,20 @@ in the window; identity = 1 - dist/alignment_length; reads with
 identity > 0.75 are trimmed at the match boundary.
 
 The distance scan runs as batched torch ops over (B, window) tiles on
-the given device (a column-wise DP over the reads); the per-candidate
-traceback
-(tiny, only for reads beating the identity threshold's distance bound)
-runs on host. Traceback prefers diagonal, then query-consuming,
-then target-consuming moves; edlib's own tie-breaking may differ in
-degenerate ties, which can only shift identity by O(1/len) around the
-threshold. tests/test_adapter_ties.py pins this: distance and the
-first-optimal end (tie-free, must equal edlib exactly) are checked
-against an exhaustive oracle, our (start, align_len) choice is proven
-to lie in the optimal-path set, and the worst-case identity spread
-across optimal paths is measured and bounded.
+the given device (a column-wise DP over the reads). The traceback of the
+candidates (reads beating the identity threshold's distance bound) runs
+on the same device too: hw_align_batch aligns all candidate windows of
+one side in one launch of csrc/adapter.cu on CUDA tensors, and on CPU
+tensors runs its plain twin, the same DP by numpy over all windows at
+once; both equal, field by field, the JAX package's per-candidate host
+functions hw_align_host and hw_align_optrange (longqc_tpu/ops/adapter).
+Traceback prefers diagonal, then query-consuming, then target-consuming
+moves; edlib's own tie-breaking may differ in degenerate ties, which can
+only shift identity by O(1/len) around the threshold. tests/test_adapter_ties.py
+pins this: distance and the first-optimal end (tie-free, must equal
+edlib exactly) are checked against an exhaustive oracle, our (start,
+align_len) choice is proven to lie in the optimal-path set, and the
+worst-case identity spread across optimal paths is measured and bounded.
 """
 
 import numpy as np
@@ -26,6 +29,7 @@ import torch
 
 from longqc_tpu_torch import tracing
 from longqc_tpu_torch.io.pack import SEQ_NT4_SKETCH
+from longqc_tpu_torch.ops import _ext
 from longqc_tpu_torch.ops._ext import require_device
 from longqc_tpu_torch.tracing import span
 
@@ -84,111 +88,106 @@ TIE_STATS = {"candidates": 0, "ambiguous_identity": 0,
              "ambiguous_start": 0}
 
 
-def hw_align_optrange(adp, window):
-    """Bounds over ALL optimal HW alignments ending at the first
-    optimal end: (dist, end, alen_min, alen_max, start_min, start_max).
-
-    Computed by a forward DP over the optimal-path subgraph (O(mn), no
-    enumeration): g(i, j) = min/max alignment columns and start bounds
-    over optimal prefixes from any (0, start) to (i, j). Any correct
-    traceback — edlib's included — reports an (start, align_len)
-    inside these bounds, so when both identity bounds fall on the same
-    side of the trim threshold the decision is exact regardless of
-    edlib's tie-break."""
-    m, n = len(adp), len(window)
-    if n == 0:
-        return None
-    D = np.zeros((m + 1, n + 1), np.int32)
-    D[:, 0] = np.arange(m + 1)
-    for j in range(1, n + 1):
-        tj = window[j - 1]
-        for i in range(1, m + 1):
-            c = 0 if adp[i - 1] == tj else 1
-            D[i, j] = min(D[i - 1, j - 1] + c, D[i - 1, j] + 1,
-                          D[i, j - 1] + 1)
-    dist = int(D[m, 1:].min())
-    end = int(np.argmin(D[m, 1:]))
-
-    BIG = 1 << 30
-    # forward bounds over prefixes that can extend to an optimal path;
-    # restrict to the band of columns that can reach (m, end+1)
-    amin = np.full((m + 1, n + 1), BIG, np.int64)
-    amax = np.full((m + 1, n + 1), -BIG, np.int64)
-    smin = np.full((m + 1, n + 1), BIG, np.int64)
-    smax = np.full((m + 1, n + 1), -BIG, np.int64)
-    amin[0, :] = amax[0, :] = 0
-    smin[0, :] = smax[0, :] = np.arange(n + 1)
-    for i in range(1, m + 1):
-        for j in range(0, end + 2):
-            best = D[i, j]
-            cands = []
-            if j > 0:
-                c = 0 if adp[i - 1] == window[j - 1] else 1
-                if best == D[i - 1, j - 1] + c:
-                    cands.append((i - 1, j - 1))
-                if best == D[i, j - 1] + 1:
-                    cands.append((i, j - 1))
-            if best == D[i - 1, j] + 1:
-                cands.append((i - 1, j))
-            for (pi, pj) in cands:
-                if amin[pi, pj] == BIG:
-                    continue
-                amin[i, j] = min(amin[i, j], amin[pi, pj] + 1)
-                amax[i, j] = max(amax[i, j], amax[pi, pj] + 1)
-                smin[i, j] = min(smin[i, j], smin[pi, pj])
-                smax[i, j] = max(smax[i, j], smax[pi, pj])
-    return (dist, end, int(amin[m, end + 1]), int(amax[m, end + 1]),
-            int(smin[m, end + 1]), int(smax[m, end + 1]))
-
-
-def hw_align_host(adp, window):
-    """Full infix DP + traceback on host -> (dist, start, end, align_len)
-    or None if window shorter than 1."""
+def _align_plain(adp, windows, win_lens):
+    """hw_align_batch's plain twin, numpy over all windows at once: the
+    DP column by column and down the adapter's rows, each cell's move and
+    bounds over optimal paths, then every window's traceback in step."""
+    C, Lw = windows.shape
     m = len(adp)
-    n = len(window)
-    if n == 0:
-        return None
-    D = np.zeros((m + 1, n + 1), np.int32)
-    D[:, 0] = np.arange(m + 1)
-    D[0, :] = 0
-    for j in range(1, n + 1):
-        tj = window[j - 1]
+    n = win_lens.clip(0, Lw)
+    BIG = 1 << 30
+    ar = np.arange(C)
+    # the column before, rows 0..m by windows: D, amin, amax, smin, smax
+    col = [np.repeat(np.arange(m + 1)[:, None], C, 1) for _ in range(3)] \
+        + [np.zeros((m + 1, C), np.int64) for _ in range(2)]
+    moves = np.zeros((Lw + 1, m + 1, C), np.int8)
+    best = np.full(C, BIG)
+    bj = np.zeros(C, np.int64)
+    bnd = np.zeros((4, C), np.int64)
+    for j in range(1, Lw + 1):
+        new = [np.empty_like(x) for x in col]
+        for x, v in zip(new, (0, 0, 0, j, j)):
+            x[0] = v
         for i in range(1, m + 1):
-            c = 0 if adp[i - 1] == tj else 1
-            D[i, j] = min(D[i - 1, j - 1] + c, D[i - 1, j] + 1,
-                          D[i, j - 1] + 1)
-    dist = int(D[m, 1:].min())
-    end = int(np.argmin(D[m, 1:]))  # 0-based target index of last char
-    # traceback from (m, end+1): prefer diag, then up (query), then left
-    i, j = m, end + 1
-    n_ops = 0
-    while i > 0:
-        n_ops += 1
-        c = 0 if (j > 0 and adp[i - 1] == window[j - 1]) else 1
-        if j > 0 and D[i, j] == D[i - 1, j - 1] + c:
-            i -= 1
-            j -= 1
-        elif D[i, j] == D[i - 1, j] + 1:
-            i -= 1
-        else:
-            j -= 1
-    start = j
-    # remaining leftward moves at i==0 are free (HW prefix)
-    align_len = n_ops + 0
-    # align_len counts M/I ops so far; add D ops (target-only) counted in
-    # the loop via the else branch — already counted in n_ops.
-    return dist, start, end, align_len
+            pred = [[x[i - 1] for x in col], [x[i - 1] for x in new],
+                    [x[i] for x in col]]          # diagonal, query, target
+            cost = [pred[0][0] + (adp[i - 1] != windows[:, j - 1]),
+                    pred[1][0] + 1, pred[2][0] + 1]
+            d = np.minimum(np.minimum(cost[0], cost[1]), cost[2])
+            on = [cst == d for cst in cost]
+            new[0][i] = d
+            for f, red, far in ((1, np.minimum, BIG), (2, np.maximum, -BIG),
+                                (3, np.minimum, BIG), (4, np.maximum, -BIG)):
+                acc = np.full(C, far)
+                for o, p in zip(on, pred):
+                    acc = np.where(o, red(acc, p[f]), acc)
+                new[f][i] = acc + (f <= 2)
+            moves[j, i] = np.where(on[0], 0, np.where(on[1], 1, 2))
+        # the first column of row m's minimum over the window's columns
+        up = (new[0][m] < best) & (j <= n)
+        best = np.where(up, new[0][m], best)
+        bj = np.where(up, j, bj)
+        bnd = np.where(up, np.stack([x[m] for x in new[1:]]), bnd)
+        col = new
+    # traceback from (m, bj); at column 0 the rest of the way is query moves
+    ii, jj, ops = np.full(C, m), bj.copy(), np.zeros(C, np.int64)
+    for _ in range(m + Lw):
+        on = (ii > 0) & (jj > 0)
+        mo = moves[jj, ii, ar]
+        ops += on
+        ii = ii - (on & (mo != 2))
+        jj = jj - (on & (mo != 1))
+    out = np.stack([best, jj, bj - 1, ops + ii] + list(bnd)).astype(np.int32)
+    out[:, n == 0] = -1
+    return out
 
 
-def adapter_dists(reads, adp, where, length=150, device="cuda"):
-    """Device pass: min edit distance + end for each read's window.
+ALIGN_SCRATCH_BYTES = 1 << 28   # the kernel's warp slots (moves and strip
+#                                 edges of one candidate each) take at most
+#                                 this many bytes
 
-    where: 'head' or 'tail' (first/last `length` bp).
-    Reads shorter than 2*length are skipped (dist = big).
-    Returns numpy (dists, ends, skipped_mask).
-    """
-    device = require_device(device)
-    adp_codes = encode(adp)
+
+def hw_align_batch(adp, windows, win_lens):
+    """All candidate windows of one side against the adapter: adp (m,),
+    windows (C, Lw) and win_lens (C,) int32 codes of one device -> (8, C)
+    int32 rows dist, start, end, align_len (the JAX package's
+    hw_align_host's) and amin, amax, smin, smax (its hw_align_optrange's
+    bounds at (m, end + 1)) of the window's first win_lens[c] columns; -1
+    throughout for a window of no columns (where both give None). CUDA
+    tensors launch csrc/adapter.cu and count their windows under
+    adapter.align_kernel, CPU tensors run the plain twin, _align_plain."""
+    m = adp.shape[0] if adp.dim() == 1 else 0
+    if m < 1 or windows.dim() != 2 or \
+            tuple(win_lens.shape) != (windows.shape[0],):
+        raise ValueError("hw_align_batch takes adp (m >= 1,), windows "
+                         "(C, Lw) and win_lens (C,)")
+    C, Lw = windows.shape
+    if windows.device.type == "cpu":
+        return torch.from_numpy(_align_plain(
+            adp.numpy(), windows.numpy(), win_lens.numpy()))
+    ins = [t.contiguous() for t in (adp, windows, win_lens)]
+    _ext.require_cuda(*ins)
+    adp, windows, win_lens = ins
+    dev = windows.device
+    out = torch.empty((8, C), dtype=torch.int32, device=dev)
+    tracing.count("adapter.align_kernel", C)
+    if C == 0:
+        return out
+    mv_bytes = -(-m // 32) * (Lw + 32) * 32
+    edge_ints = 2 * 5 * (Lw + 1)
+    nslot = min(C, max(1, ALIGN_SCRATCH_BYTES // (mv_bytes + 4 * edge_ints)))
+    moves = torch.empty(nslot * mv_bytes, dtype=torch.uint8, device=dev)
+    edges = torch.empty(nslot * edge_ints, dtype=torch.int32, device=dev)
+    _ext.LAUNCHES["adapter_align"] += 1
+    _ext.lib().adapter_align(adp, windows, win_lens, out, moves, edges,
+                             nslot)
+    return out
+
+
+def _search_dp(reads, adp_codes, where, length, device):
+    """The distance scan of one side: (dists, ends, skipped) as numpy,
+    and the adapter, windows and window lengths as tensors of `device`
+    (the candidates' windows are taken from them)."""
     m = len(adp_codes)
     B = len(reads)
     windows = np.full((B, length), 4, np.int32)
@@ -202,10 +201,21 @@ def adapter_dists(reads, adp, where, length=150, device="cuda"):
         wseq = s[:length] if where == "head" else s[-length:]
         windows[i, :len(wseq)] = encode(wseq)
         win_lens[i] = len(wseq)
-    dists, ends = _hw_dist_batch(torch.from_numpy(windows).to(device),
-                                 torch.from_numpy(win_lens).to(device),
-                                 torch.from_numpy(adp_codes).to(device), m)
-    return dists.cpu().numpy(), ends.cpu().numpy(), skipped
+    a, w, wl = (torch.from_numpy(x).to(device)
+                for x in (adp_codes, windows, win_lens))
+    dists, ends = _hw_dist_batch(w, wl, a, m)
+    return dists.cpu().numpy(), ends.cpu().numpy(), skipped, (a, w, wl)
+
+
+def adapter_dists(reads, adp, where, length=150, device="cuda"):
+    """Device pass: min edit distance + end for each read's window.
+
+    where: 'head' or 'tail' (first/last `length` bp).
+    Reads shorter than 2*length are skipped (dist = big).
+    Returns numpy (dists, ends, skipped_mask).
+    """
+    device = require_device(device)
+    return _search_dp(reads, encode(adp), where, length, device)[:3]
 
 
 def cut_adapter(reads, len_list=None, adp_t=None, adp_b=None, th=0.75,
@@ -217,38 +227,40 @@ def cut_adapter(reads, len_list=None, adp_t=None, adp_b=None, th=0.75,
     """
     if not adp_t and not adp_b:
         return None
+    device = require_device(device)
 
     def one_side(adp, where):
         iden_max = -1.0
         match_num = 0
         cut_pos = []
+        adp_codes = encode(adp)
+        m = len(adp_codes)
         with span("adapter.dp"):
-            dists, ends, skipped = adapter_dists(reads, adp, where, length,
-                                                 device)
-        m = len(adp)
+            dists, ends, skipped, (a, w, wl) = _search_dp(
+                reads, adp_codes, where, length, device)
         # identity bound: identity = 1 - d/alen, alen <= m + d
         # => candidates need 1 - d/(m+d) > th  <=> d < m*(1-th)/th
         cand = (~skipped) & (dists < int(np.ceil(m * (1 - th) / th)) + 1)
-        adp_codes = encode(adp)
+        idx = np.nonzero(cand)[0]
         n_range = 0
-        for i in np.nonzero(cand)[0]:
-            r = reads[i]
-            s = r[1]
-            wseq = s[:length] if where == "head" else s[-length:]
-            with span("adapter.align"):
-                res = hw_align_host(adp_codes, encode(wseq))
-                if res is None:
+        with span("adapter.align"):
+            sel = torch.from_numpy(idx).to(device)
+            aligned = hw_align_batch(a, w.index_select(0, sel),
+                                     wl.index_select(0, sel)).cpu().numpy()
+            for i, res in zip(idx, aligned.T.tolist()):
+                dist, start, end, alen, amin, amax, smin, smax = res
+                if dist < 0:        # a window of no columns
                     continue
-                dist, start, end, alen = res
                 identity = 1.0 - float(dist / alen)
                 # tie accounting: when every optimal path agrees on the
                 # threshold comparison, the trim decision is exact for ANY
                 # tie-break edlib could use. align_len always lies in
                 # [m, m+d], so a straddle needs d in the narrow band where
-                # 1-d/m <= th < 1-d/(m+d) — only then is the O(mn) range
-                # DP run. Tail-start ambiguity (affects the cut position)
-                # is sampled. Straddles are tallied in TIE_STATS (zero on
-                # real adapter workloads, tests/test_adapter_ties.py).
+                # 1-d/m <= th < 1-d/(m+d) — only there are the bounds over
+                # the optimal paths read. Tail-start ambiguity (affects the
+                # cut position) is sampled. Straddles are tallied in
+                # TIE_STATS (zero on real adapter workloads,
+                # tests/test_adapter_ties.py).
                 TIE_STATS["candidates"] += 1
                 may_straddle = (1.0 - dist / max(m, 1) <= th
                                 < 1.0 - dist / (m + dist))
@@ -256,31 +268,30 @@ def cut_adapter(reads, len_list=None, adp_t=None, adp_b=None, th=0.75,
                                 and TIE_STATS["candidates"] <= 200)
                 if may_straddle or sample_start:
                     n_range += 1
-                    rng_ = hw_align_optrange(adp_codes, encode(wseq))
-                    if rng_ is not None:
-                        _d, _e, amin, amax, smin, smax = rng_
-                        lo = 1.0 - float(_d / amin) if amin else 1.0
-                        hi = 1.0 - float(_d / amax) if amax else 1.0
-                        if (lo > th) != (hi > th):
-                            TIE_STATS["ambiguous_identity"] += 1
-                        if sample_start and smin != smax:
-                            TIE_STATS["ambiguous_start"] += 1
-            if identity > th:
-                match_num += 1
-                if identity > iden_max:
-                    iden_max = identity
-                if where == "head":
-                    cut_pos.append(end)
-                    r[1] = s[end + 1:]
-                    if len(r) > 2 and r[2]:
-                        r[2] = r[2][end + 1:]
-                else:
-                    cut = len(s) - length + start
-                    cut_pos.append(length - start)
-                    r[1] = s[:cut]
-                    if len(r) > 2 and r[2]:
-                        r[2] = r[2][:cut]
-        tracing.count("adapter.candidates", int(cand.sum()))
+                    lo = 1.0 - float(dist / amin) if amin else 1.0
+                    hi = 1.0 - float(dist / amax) if amax else 1.0
+                    if (lo > th) != (hi > th):
+                        TIE_STATS["ambiguous_identity"] += 1
+                    if sample_start and smin != smax:
+                        TIE_STATS["ambiguous_start"] += 1
+                if identity > th:
+                    r = reads[i]
+                    s = r[1]
+                    match_num += 1
+                    if identity > iden_max:
+                        iden_max = identity
+                    if where == "head":
+                        cut_pos.append(end)
+                        r[1] = s[end + 1:]
+                        if len(r) > 2 and r[2]:
+                            r[2] = r[2][end + 1:]
+                    else:
+                        cut = len(s) - length + start
+                        cut_pos.append(length - start)
+                        r[1] = s[:cut]
+                        if len(r) > 2 and r[2]:
+                            r[2] = r[2][:cut]
+        tracing.count("adapter.candidates", len(idx))
         tracing.count("adapter.straddle_dp", n_range)
         return (iden_max, match_num, cut_pos)
 

@@ -6,6 +6,7 @@ both packages contract the same int32 histograms with q2p in f64 on the
 host."""
 
 import random
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -18,12 +19,14 @@ from longqc_tpu.ops import adapter as jadp
 from longqc_tpu.ops import gc as jgc
 from longqc_tpu.ops import quality as jq
 from longqc_tpu.ops import sdust as jsd
+from longqc_tpu_torch import tracing
 from longqc_tpu_torch.engine import masking as tmask
 from longqc_tpu_torch.io.pack import SEQ_NT4_SDUST, pack_reads
 from longqc_tpu_torch.ops import adapter as tadp
 from longqc_tpu_torch.ops import gc as tgc
 from longqc_tpu_torch.ops import quality as tq
 from longqc_tpu_torch.ops import sdust as tsd
+from torch_util import adapter_codes, adapter_windows
 from util_synth import make_genome, sample_reads
 
 ONT_ADP5 = "AATGTACTTCGTTCAGTTACGTATTGCT"
@@ -306,6 +309,124 @@ def test_cut_adapter_equals_jax(sides):
     assert got_tie == want_tie and got_tie["candidates"] > 0
     sides_res = want if sides == "both" else (want,)
     assert all(s[1] >= 5 for s in sides_res)
+
+
+def _host_alignments(adp, wins, lens):
+    """The JAX package's per-candidate host functions over the windows:
+    (8, C) in hw_align_batch's rows, -1 where they give None."""
+    out = []
+    for c in range(len(wins)):
+        win = wins[c, :lens[c]]
+        res = jadp.hw_align_host(adp, win)
+        out.append([-1] * 8 if res is None else
+                   list(res) + list(jadp.hw_align_optrange(adp, win)[2:]))
+    return np.array(out, np.int32).reshape(-1, 8).T
+
+
+@pytest.mark.parametrize("length", [60, 150])
+@pytest.mark.parametrize("m", [18, 28, 45, 64, 100])
+def test_hw_align_batch_equals_the_host_functions(m, length):
+    """The batched alignment's plain twin (CPU tensors) against the JAX
+    package's hw_align_host and hw_align_optrange window by window, all
+    eight fields, on every kind of window: random, the adapter planted
+    exact and mutated, poly-A, tandem adapter fragments, repeats, N runs,
+    windows of 0, 1, 2 and fewer than `length` columns."""
+    rng = np.random.RandomState(m * 1000 + length)
+    adp = adapter_codes(m)
+    wins, lens = adapter_windows(rng, adp, 14, length)
+    got = tadp.hw_align_batch(torch.from_numpy(adp), torch.from_numpy(wins),
+                              torch.from_numpy(lens))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (8, 14)
+    assert np.array_equal(got.numpy(), _host_alignments(adp, wins, lens))
+
+
+@pytest.mark.parametrize("m", [18, 28])
+def test_hw_align_batch_tie_heavy_windows_equal_the_host_functions(m):
+    """The plain twin against the JAX package's host functions on 240
+    tie-heavy windows of 150 columns at the ONT adapters' lengths: the
+    adapter mutated, poly-A, tandem copies of an adapter fragment and
+    dinucleotide repeats (kinds 2-5 of tests/torch_util.adapter_windows),
+    where most cells have more than one optimal move."""
+    rng = np.random.RandomState(7 * m)
+    adp = adapter_codes(m)
+    wins, lens = adapter_windows(rng, adp, 420, 150)
+    keep = np.isin(np.arange(420) % 7, (2, 3, 4, 5))
+    wins, lens = wins[keep], lens[keep]
+    got = tadp.hw_align_batch(torch.from_numpy(adp), torch.from_numpy(wins),
+                              torch.from_numpy(lens))
+    want = _host_alignments(adp, wins, lens)
+    assert np.array_equal(got.numpy(), want)
+    # the traceback's choice differs from another optimal path's somewhere
+    assert (want[4] != want[5]).any() and (want[6] != want[7]).any()
+
+
+def _tie_reads(rng, adp, where, n=40):
+    """Reads of 320-900 bp whose searched end is tie-heavy in turn:
+    poly-A with the adapter mutated inside, tandem copies of an adapter
+    fragment, a dinucleotide repeat, the adapter exact, random."""
+    reads = []
+    for i in range(n):
+        s = make_genome(rng, rng.randint(320, 900))
+        kind = i % 5
+        if kind == 0:
+            end = "A" * rng.randint(20, 80) + _mutate(rng, adp, 2, 1, 1)
+        elif kind == 1:
+            f = rng.randint(0, len(adp) - 6)
+            end = adp[f:f + rng.randint(3, 7)] * 30
+        elif kind == 2:
+            end = "".join(rng.choice(list("ACGT"), 2)) * 60
+        elif kind == 3:
+            end = adp
+        else:
+            end = ""
+        s = end + s if where == "head" else s + end
+        reads.append(["t%03d" % i, s, _qual(rng, len(s))])
+    return reads
+
+
+@pytest.mark.parametrize("sides", ["head", "tail", "both"])
+def test_cut_adapter_counters_equal_the_host_loop(sides, monkeypatch):
+    """cut_adapter on CPU tensors over tie-heavy reads, from TIE_STATS
+    near the 200-candidate limit of the start sampling: its outputs,
+    trimmed reads and TIE_STATS deltas equal the JAX package's
+    per-candidate loop; adapter.candidates and adapter.straddle_dp equal
+    that loop's calls of hw_align_host and hw_align_optrange; no
+    candidate is aligned on the card (adapter.align_kernel 0); one
+    adapter.align span a side."""
+    calls = Counter()
+    for name in ("hw_align_host", "hw_align_optrange"):
+        monkeypatch.setattr(
+            jadp, name, lambda *a, _f=getattr(jadp, name), _n=name:
+            (calls.update([_n]), _f(*a))[1])
+    for mod in (jadp, tadp):
+        monkeypatch.setattr(mod, "TIE_STATS", {
+            "candidates": 190, "ambiguous_identity": 0,
+            "ambiguous_start": 0})
+    rng = np.random.RandomState({"head": 11, "tail": 12, "both": 13}[sides])
+    a5, a3 = ONT_ADP5, "GCAATACGTAACTGAACG"
+    kw = {"th": 0.75, "length": 150}
+    if sides != "tail":
+        kw["adp_t"] = a5
+        reads = _tie_reads(rng, a5, "head")
+    if sides != "head":
+        kw["adp_b"] = a3
+        reads = _tie_reads(rng, a3, "tail") if sides == "tail" else \
+            [[r[0], r[1] + t[1][-300:], ""] for r, t in
+             zip(reads, _tie_reads(rng, a3, "tail"))]
+    want, want_reads, want_tie = _cut_both(jadp, reads, kw)
+    stats = {}
+    with tracing.run(stats):
+        got, got_reads, got_tie = _cut_both(tadp, reads,
+                                            dict(kw, device="cpu"))
+    assert got == want
+    assert got_reads == want_reads
+    assert got_tie == want_tie
+    cnt = stats["spans"]["counters"]
+    assert cnt["adapter.candidates"] == calls["hw_align_host"] > 0
+    assert cnt["adapter.straddle_dp"] == calls["hw_align_optrange"] > 0
+    assert cnt.get("adapter.align_kernel", 0) == 0
+    assert stats["spans"]["by_name"]["adapter.align"]["n"] == \
+        (2 if sides == "both" else 1)
 
 
 def test_entry_points_default_to_the_card():

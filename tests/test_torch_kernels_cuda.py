@@ -10,11 +10,15 @@ import os
 import numpy as np
 import pytest
 import torch
-from torch_util import (QC_JSON, SAMPLEQC_TABLES, compare_qc_json,
+from torch_util import (ONT_ADP5, QC_JSON, SAMPLEQC_TABLES, adapter_codes,
+                        adapter_windows, compare_qc_json,
                         ext_edge_pairs, ext_strip_pairs,
                         ont_sampleqc_reads, pb_sampleqc_reads)
 
+from longqc_tpu_torch import tracing
 from longqc_tpu_torch.engine import device_index as di
+from longqc_tpu_torch.ops import _ext
+from longqc_tpu_torch.ops import adapter as adp_ops
 from longqc_tpu_torch.ops import extend as ext
 from longqc_tpu_torch.ops import ringprop as rp
 from longqc_tpu_torch.ops import sketch_cuda as skc
@@ -267,6 +271,80 @@ def test_extend_wide_band_in_device_memory(dev, mode, monkeypatch):
         p = ext.extz_batch_plain(q, ql, t, tl, W=W, zdrop=400, **gap)
         for key in ext.KEYS:
             assert torch.equal(k[key], p[key]), (W, key)
+
+
+def _align_both(adp, wins, lens, dev):
+    """hw_align_batch on the card and on the CPU (its plain twin)."""
+    ins = [torch.from_numpy(x) for x in (adp, wins, lens)]
+    card = adp_ops.hw_align_batch(*(t.to(dev) for t in ins))
+    assert card.is_cuda and card.dtype == torch.int32
+    return card.cpu(), adp_ops.hw_align_batch(*ins)
+
+
+@pytest.mark.parametrize("m", [18, 28, 45, 64, 100])
+def test_adapter_align_kernel_matches_plain(dev, m):
+    """The adapter search's alignment kernel on 10,003 windows of 150
+    columns and 1,001 of 60 (counts not a multiple of a block's 4 warps),
+    every kind of tests/torch_util.adapter_windows (random, the adapter
+    planted exact and mutated, poly-A, tandem fragments, repeats, N runs,
+    windows of 0, 1, 2 and fewer columns): all eight fields equal the
+    plain twin's on every window; C = 0 and C = 1."""
+    rng = np.random.RandomState(m)
+    adp = adapter_codes(m)
+    for C, Lw in ((10003, 150), (1001, 60)):
+        wins, lens = adapter_windows(rng, adp, C, Lw)
+        card, plain = _align_both(adp, wins, lens, dev)
+        assert tuple(card.shape) == (8, C) and torch.equal(card, plain)
+    for C in (0, 1):
+        wins, lens = adapter_windows(rng, adp, 4, 150)
+        wins, lens = wins[3:3 + C], lens[3:3 + C]
+        card, plain = _align_both(adp, wins, lens, dev)
+        assert tuple(card.shape) == (8, C) and torch.equal(card, plain)
+
+
+@pytest.mark.parametrize("m", [28, 100])
+def test_adapter_align_kernel_walks_on_past_its_slots(dev, m, monkeypatch):
+    """Scratch for one warp slot: one warp aligns all 301 windows in
+    turn, reusing its moves (and at m = 100 its strip edges)."""
+    monkeypatch.setattr(adp_ops, "ALIGN_SCRATCH_BYTES", 1)
+    rng = np.random.RandomState(m + 1)
+    adp = adapter_codes(m)
+    wins, lens = adapter_windows(rng, adp, 301, 150)
+    card, plain = _align_both(adp, wins, lens, dev)
+    assert torch.equal(card, plain)
+
+
+def test_cut_adapter_card_run_equals_cpu_run(dev, monkeypatch):
+    """cut_adapter with both adapters on the card: one adapter_align
+    launch a side; outputs, trimmed reads, TIE_STATS deltas and counters
+    equal a run on CPU tensors from the same TIE_STATS, and every
+    candidate was aligned on the card."""
+    a3 = "GCAATACGTAACTGAACG"
+    reads = [[n, s + a3 if i % 3 == 0 else s, q + "I" * len(a3)
+              if i % 3 == 0 else q]
+             for i, (n, s, q) in enumerate(ont_sampleqc_reads())]
+    runs = []
+    for device in ("cpu", dev):
+        monkeypatch.setattr(adp_ops, "TIE_STATS", {
+            "candidates": 150, "ambiguous_identity": 0,
+            "ambiguous_start": 0})
+        work = [list(r) for r in reads]
+        stats = {}
+        _ext.reset_launches()
+        with tracing.run(stats):
+            res = adp_ops.cut_adapter(work, adp_t=ONT_ADP5, adp_b=a3,
+                                      device=device)
+        runs.append((res, work, dict(adp_ops.TIE_STATS),
+                     stats["spans"]["counters"],
+                     _ext.LAUNCHES["adapter_align"]))
+    (r0, w0, t0, c0, l0), (r1, w1, t1, c1, l1) = runs
+    assert (r1, w1, t1) == (r0, w0, t0)
+    assert l0 == 0 and l1 == 2
+    assert r1[0][1] >= 20 and t1["candidates"] > 150
+    assert c0.get("adapter.align_kernel", 0) == 0
+    assert c1["adapter.align_kernel"] == c1["adapter.candidates"] > 0
+    for key in ("adapter.candidates", "adapter.straddle_dp"):
+        assert c1[key] == c0[key]
 
 
 @pytest.mark.parametrize("preset", ["ont-ligation", "pb-sequel"])

@@ -237,3 +237,61 @@ def ext_strip_pairs(rng, Lq=600, Lt=590):
     ts[3, 40:] = 4
     return (np.concatenate([eq, qs]), np.concatenate([eql, qlens]),
             np.concatenate([et, ts]), np.concatenate([etl, tlens]))
+
+
+def adapter_codes(m):
+    """Codes of an adapter of m bp: a preset's where one has that length
+    (18, 28, 45, 50, 59, 64), else two presets' joined and cut to m."""
+    from longqc_tpu_torch.config import PRESETS
+    from longqc_tpu_torch.ops.adapter import encode
+    adps = [a for p in PRESETS.values() for a in (p.adp5, p.adp3) if a]
+    one = [a for a in adps if len(a) == m]
+    seq = one[0] if one else (PRESETS["ont-rapid"].adp5
+                              + PRESETS["ont-1dsq"].adp5) * (m // 109 + 1)
+    return encode(seq[:m])
+
+
+def adapter_windows(rng, adp, C, Lw):
+    """(C, Lw) int32 windows and (C,) int32 lengths for the adapter
+    search's alignment, by kind in turn: random; the adapter planted exact
+    or mutated (substitutions, insertions, deletions), whole or running
+    off either end; poly-A; tandem copies of an adapter fragment;
+    dinucleotide repeats; random with N runs. Most lengths are Lw, one in
+    seven shorter; the first three windows are 0, 1 and 2 columns long."""
+    adp = np.asarray(adp, np.int32)
+    m = len(adp)
+    wins = rng.randint(0, 4, size=(C, Lw)).astype(np.int32)
+    for c in range(C):
+        kind = c % 7
+        w = wins[c]
+        if kind in (1, 2):
+            a = list(adp)
+            for _ in range(0 if kind == 1 else rng.randint(1, 4)):
+                p = rng.randint(0, len(a))
+                op = rng.randint(0, 3)
+                if op == 0:
+                    a[p] = (a[p] + rng.randint(1, 4)) % 4
+                elif op == 1:
+                    a.insert(p, rng.randint(0, 4))
+                elif len(a) > 1:
+                    del a[p]
+            p = rng.randint(-len(a) // 2, Lw)
+            lo, hi = max(p, 0), min(p + len(a), Lw)
+            if hi > lo:
+                w[lo:hi] = a[lo - p:hi - p]
+        elif kind == 3:
+            w[:] = np.where(rng.rand(Lw) < .05, rng.randint(1, 4, Lw), 0)
+        elif kind == 4:
+            f = rng.randint(2, max(3, min(m, 12)))
+            s = rng.randint(0, m - f + 1) if m > f else 0
+            frag = adp[s:s + f]
+            w[:] = np.resize(frag, Lw)
+        elif kind == 5:
+            w[:] = np.resize(rng.randint(0, 4, 2), Lw)
+        elif kind == 6:
+            p = rng.randint(0, Lw)
+            w[p:p + rng.randint(1, 20)] = 4
+    lens = np.where(rng.rand(C) < 1 / 7, rng.randint(0, Lw + 1, C), Lw)
+    lens[:3] = np.minimum((0, 1, 2), Lw)
+    return wins, lens.astype(np.int32)
+
