@@ -31,7 +31,12 @@ prints the final result line):
      B2's output (Q=128 A=8192) and on Q=128 A=65536 synthetic forests
      (depth-A paths, chains across B3 / B4's chunks, garbage parents,
      parents past J) with J = A and J = 256; both times and each
-     kernel's bound printed
+     kernel's bound printed; then at the wide rungs' shapes (rows past
+     the engine's top anchor rung, checked after phase 15): B3 / B4 on
+     far forests at Q x A = 16 x 2^21 (B4's pending mask in device
+     memory) and 64 x 2^19, B2 at 64 x 2^19 (row 0 against its plain
+     version), the plain versions run on CPU tensors in side processes
+     from phase 4 on
   4. small end to end: the engine's rows on the card equal the port's
      host spec (overlap_host.overlap_run), at k=12 w=5 and, so that the
      run-time-ring B1 variants run on a path, at w=40 with k=12 and
@@ -156,10 +161,20 @@ prints the final result line):
      30M; peak device memory at most 1.1 x phase 5's (one device build
      live at a time); the parts, phase_s (`index`, `part_wait`, `step`)
      and the wall printed
+ 15. rows past the top anchor rung (262,144) through cli.main at phase
+     5's settings, on the ont-ultralong cell's reads: 800 of 10-290 kbp
+     (7.5x of a 16 Mbp genome, no junk; made by a side process from
+     phase 4 on); queries the 96 longest and 32 others: no host-fixed
+     row, at least half the rows stepped at the wide rungs, B4 launched
+     past 2^20 anchors; the rows of the longest, the 48th longest and
+     the shortest query equal the benchmark's plain reference
+     (benchmark/reference/overlap.rows_for, in the side process on CPU
+     tensors); the wide-row counters and B3 / B4 launches by rung
+     printed
 The side processes use the CPU only and are stopped when the script
 stops. Kernel launch counts are reset just before each path (phase 4's three
 runs, phases 5, 6, 7, 8, 9, 10a, 10b, 11, phase 12's two batched-chainer
-runs, 14a, 14b) and read just after it. Each
+runs, 14a, 14b, 15) and read just after it. Each
 kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its integer operations
 (counted from this run's data) over 67 T/s, the card's 32-bit rate
@@ -693,10 +708,12 @@ def ringprop_forests(rng, Q, A):
     return [a.astype(np.int32) for a in (f, v, p, own)]
 
 
-def check_ringprop(what, f, v, p, own, J, out, sfx):
+def check_ringprop(what, f, v, p, own, J, out, sfx, plain_cpu=None):
     """B3 and B4 against their plain versions on (Q, A) rows, exact;
     times and bounds into out[name] as ms / plain_ms / bound_ms, each
-    key suffixed with `sfx`."""
+    key suffixed with `sfx`. plain_cpu: {name: (output, ms)} of the
+    plain versions run on the CPU (a side process) in place of a run on
+    the card here; their ms go to plain_cpu_ms."""
     import torch
     from longqc_tpu_torch.ops import ringprop as rp
 
@@ -709,23 +726,144 @@ def check_ringprop(what, f, v, p, own, J, out, sfx):
             args, n_arrays = (p, own), 3
             kern, plain = rp.minrank_pass, rp.minrank_pass_plain
         got = kern(*args, J=J)
-        t = time.time()
-        want = plain(*args, J=J)
-        torch.cuda.synchronize()
-        pms = (time.time() - t) * 1e3
+        if plain_cpu:
+            want, pms = plain_cpu[name]
+        else:
+            t = time.time()
+            want = plain(*args, J=J)
+            torch.cuda.synchronize()
+            pms = (time.time() - t) * 1e3
         err = require_equal("%s %s J=%d" % (name, what, J), got, want)
         ms = cuda_ms(lambda: kern(*args, J=J), 5)
         b_ms, b_by = bound(n_arrays * Q * A * 4, 0)
         log("%s %s Q=%d A=%d J=%d (%s): equal; kernel %.4f ms, plain %.3f "
-            "ms, bound %.4f ms (%s)" % ("B3" if name == "peak" else "B4",
-                                        name, Q, A, J, what, ms, pms, b_ms,
-                                        b_by))
+            "ms%s, bound %.4f ms (%s)" % (
+                "B3" if name == "peak" else "B4", name, Q, A, J, what, ms,
+                pms, " (CPU)" if plain_cpu else "", b_ms, b_by))
         o = out.setdefault(name, {})
         o["max_abs_err"] = max(err, o.get("max_abs_err", 0))
-        o.update({"ms" + sfx: ms, "plain_ms" + sfx: pms,
-                  "bound_ms" + sfx: b_ms})
+        o.update({"ms" + sfx: ms, "bound_ms" + sfx: b_ms,
+                  ("plain_cpu_ms" if plain_cpu else "plain_ms") + sfx: pms})
         if not sfx:
             o.update(bound_by=b_by, shape="Q=%d A=%d" % (Q, A))
+
+
+# the wide rungs' shapes (rows past the engine's top anchor rung, stepped
+# on fewer lanes: Q x A = 128 x 2^18 at most): B3 and B4 on far forests
+# at 16 x 2^21 (B4's pending mask in device memory, past 2^20 anchors)
+# and 64 x 2^19, B2 at 64 x 2^19. Their plain versions are loops over
+# the anchors (~0.2 ms an anchor on the card, launch-bound): they run on
+# CPU tensors in side processes from phase 4 on (WIDE_SIDES), and the
+# card's outputs are held against them after phase 15
+WIDE_RINGPROP = ((16, 1 << 21), (64, 1 << 19))
+WIDE_CHAIN = (64, 1 << 19)
+WIDE_CHAIN_ROW = 0      # B2's plain version on this (repeat-dense) row
+# side process -> (Q, A, plain versions it runs)
+WIDE_SIDES = {"wide-peak-21": WIDE_RINGPROP[0] + (("peak",),),
+              "wide-minrank-21": WIDE_RINGPROP[0] + (("minrank",),),
+              "wide-19": WIDE_RINGPROP[1] + (("peak", "minrank", "chain"),)}
+
+
+def wide_plain(workdir, Q, A, names):
+    """The plain versions `names` at (Q, A) on CPU tensors, each with
+    its inputs into workdir/wide_<name>_QxA.npz (side process): B3 /
+    B4 on far forests with J = A, B2 on row WIDE_CHAIN_ROW of
+    rand_anchor_rows."""
+    import numpy as np
+    import torch
+    from longqc_tpu_torch.ops import ringprop as rp
+    from longqc_tpu_torch.ops.chain import chain_dp_batch, gap_penalty_table
+    torch.set_num_threads(1)
+    tag = "%dx%d" % (Q, A)
+    if "peak" in names or "minrank" in names:
+        f, v, p, own = ringprop_forests(np.random.RandomState(Q), Q, A)
+        ts = {n: torch.from_numpy(a) for n, a in zip("fvp", (f, v, p))}
+        ts["own"] = torch.from_numpy(own)
+    for name in names:
+        t = time.time()
+        if name == "peak":
+            ins = ("f", "v", "p")
+            out = rp.peak_pass_plain(*(ts[n] for n in ins), J=A)
+        elif name == "minrank":
+            ins = ("p", "own")
+            out = rp.minrank_pass_plain(*(ts[n] for n in ins), J=A)
+        else:
+            axh, axl, aq, nb = rand_anchor_rows(np.random.RandomState(5), Q,
+                                                A)
+            ts = dict(axh=axh, axl=axl, aq=aq, nb=nb)
+            ins = tuple(ts)
+            r = slice(WIDE_CHAIN_ROW, WIDE_CHAIN_ROW + 1)
+            out = chain_dp_batch(
+                *(torch.from_numpy(a[r]) for a in (axh, axl, aq)),
+                torch.full((1, A), 12, dtype=torch.int32),
+                torch.from_numpy(nb[r]), torch.from_numpy(
+                    gap_penalty_table(np.float32(12), 500)[None]),
+                bw=500, return_scan=True)
+        ms = (time.time() - t) * 1e3
+        outs = {name: out} if name != "chain" else dict(zip("fpv", out[:3]),
+                                                        scan=out[3])
+        np.savez(os.path.join(workdir, "wide_%s_%s.npz" % (name, tag)),
+                 ms=ms, **{n: np.asarray(ts[n]) for n in ins},
+                 **{n: o.numpy() for n, o in outs.items()})
+
+
+def check_wide_rungs(dev, workdir, procs, out):
+    """Phase 3 at the wide rungs' shapes, after phase 15: B3 / B4 at
+    WIDE_RINGPROP and B2 at WIDE_CHAIN on the card against the side
+    processes' (procs) plain versions, exact (B2 on row
+    WIDE_CHAIN_ROW); the kernels' times and bounds into out with the
+    suffix _QxA."""
+    import numpy as np
+    import torch
+    from longqc_tpu_torch.ops.chain import gap_penalty_table
+    from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill
+
+    def load(name, Q, A):
+        return np.load(os.path.join(workdir, "wide_%s_%dx%d.npz"
+                                    % (name, Q, A)))
+    t = time.time()
+    for proc in procs:
+        side_wait(proc, "the wide rungs' plain versions on the CPU")
+    log("phase 3, the wide rungs: plain versions on the CPU, waited %.1f s"
+        % (time.time() - t))
+    for Q, A in WIDE_RINGPROP:
+        pk, mr = load("peak", Q, A), load("minrank", Q, A)
+        f, v, p = (torch.from_numpy(pk[n]).to(dev) for n in "fvp")
+        own = torch.from_numpy(mr["own"]).to(dev)
+        plain = {n: (torch.from_numpy(d[n]).to(dev), float(d["ms"]))
+                 for n, d in (("peak", pk), ("minrank", mr))}
+        check_ringprop("far forests", f, v, p, own, A, out,
+                       "_%dx%d" % (Q, A), plain_cpu=plain)
+        del f, v, p, own, plain
+    Q, A = WIDE_CHAIN
+    d = load("chain", Q, A)
+    axh, axl, aq, nb = (torch.from_numpy(d[n]).to(dev)
+                        for n in ("axh", "axl", "aq", "nb"))
+    span = torch.full((Q, A), 12, dtype=torch.int32, device=dev)
+    pen = torch.from_numpy(gap_penalty_table(np.float32(12), 500)[None]).to(
+        dev)
+
+    def kern():
+        return chain_dp_fill(axh, axl, aq, span, nb, pen, bw=500)
+    r = WIDE_CHAIN_ROW
+    err = 0
+    for nm, got in zip("fpv", kern()):
+        err = max(err, require_equal("chain %dx%d row %d %s" % (Q, A, r, nm),
+                                     got[r:r + 1],
+                                     torch.from_numpy(d[nm]).to(dev)))
+    ms = cuda_ms(kern, 3)
+    b_ms, _ = bound(nbytes(axh, axl, aq, span, nb, pen) + 3 * Q * A * 4, 0)
+    scan = d["scan"]
+    log("B2 chain Q=%d A=%d: row %d (%d anchors, ages scanned per anchor: "
+        "max %d, total %d) equal its plain version (CPU, %.1f ms); kernel "
+        "%.3f ms, bound %.4f ms (bytes; the other rows' ages not counted)"
+        % (Q, A, r, int(d["nb"][r]), int(scan.max()), int(scan.sum()),
+           float(d["ms"]), ms, b_ms))
+    o = out["chain"]
+    o["max_abs_err"] = max(err, o["max_abs_err"])
+    sfx = "_%dx%d" % (Q, A)
+    o.update({"ms" + sfx: ms, "bound_ms" + sfx: b_ms,
+              "plain_cpu_ms" + sfx + "_row%d" % r: float(d["ms"])})
 
 
 def log_rungs(phase, rungs, path_bound):
@@ -2452,6 +2590,168 @@ def part_pipeline_run(dev, workdir, targets, peak5):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: rows past the top anchor rung
+
+
+# the ont-ultralong cell's reads (800 of 10-290 kbp, 7.5x of 16 Mbp; no
+# junk here): ~3.8 anchors a base at k = 12 against the 120 Mbp part, so
+# rows past ~70 kbp step at the wide rungs and rows past ~276 kbp at
+# 2^21 (B4's pending mask in device memory on the path). Queries: the
+# n_long longest reads and n_other others, so groups mix wide and
+# ladder rows
+UL_RUN = dict(phase="phase 15", k=12, w=5, p=160, q=160, seed=1515,
+              genome=16_000_000, n_targets=800, min_len=10000,
+              max_len=290000, err=0.12, junk=0.0, n_long=96, n_other=32)
+UL_CHECK = (0, 47, -1)  # queries by length: the rows held to the reference
+
+
+def ul_cfg():
+    from longqc_tpu_torch.config import FltOpt, IndexOpt, MapOpt, \
+        OverlapConfig, parse_num
+    run = UL_RUN
+    return OverlapConfig(
+        index=IndexOpt(k=run["k"], w=run["w"], batch_size=parse_num("4G")),
+        map=MapOpt(min_score_med=run["p"], min_score_good=run["q"],
+                   min_chain_score=40),
+        flt=FltOpt(min_ovlp=0, min_coverage=3))
+
+
+def ul_data(workdir):
+    """Phase 15's reads (UL_RUN) as ul_targets.fq and ul_queries.fq,
+    then the rows of the UL_CHECK queries by the benchmark's plain
+    reference (benchmark/reference/overlap.rows_for, CPU tensors) into
+    ul_rows.json (side process from phase 4 on)."""
+    import numpy as np
+    import torch
+    from util_synth import make_genome_fast, sample_reads_fast
+    from benchmark.reference import overlap as ref_ov
+    torch.set_num_threads(2)
+    run = UL_RUN
+    rng = np.random.RandomState(run["seed"])
+    reads = sample_reads_fast(rng, make_genome_fast(rng, run["genome"]),
+                              run["n_targets"], min_len=run["min_len"],
+                              max_len=run["max_len"], err=run["err"],
+                              junk_frac=run["junk"])
+    by_len = sorted(range(len(reads)), key=lambda i: -len(reads[i][1]))
+    picked = by_len[:run["n_long"]] + sorted(random.Random(15).sample(
+        by_len[run["n_long"]:], run["n_other"]))
+    queries = [reads[i] for i in picked]
+    for name, rs in (("ul_targets.fq", reads), ("ul_queries.fq", queries)):
+        write_fastq(os.path.join(workdir, name + ".part"), rs)
+    for name in ("ul_targets.fq", "ul_queries.fq"):
+        os.rename(os.path.join(workdir, name + ".part"),
+                  os.path.join(workdir, name))
+    q_by_len = sorted(range(len(queries)),
+                      key=lambda i: -len(queries[i][1]))
+    pick = [q_by_len[i] for i in UL_CHECK]
+    cfg = ul_cfg()
+    m, f = cfg.map, cfg.flt
+    ov = dict(k=run["k"], w=run["w"], max_gap=m.max_gap, bw=m.bw,
+              max_skip=m.max_chain_skip, min_cnt=m.min_cnt,
+              min_chain_score=m.min_chain_score, min_score_med=run["p"],
+              min_score_good=run["q"], mid_occ_frac=m.mid_occ_frac,
+              max_overhang=f.max_overhang, min_ratio=f.min_ratio,
+              min_cov=f.min_coverage, covt=cfg.covt)
+    t = time.time()
+    rows, _ = ref_ov.rows_for(reads, queries, pick, ov)
+    with open(os.path.join(workdir, "ul_rows.json"), "w") as fh:
+        json.dump({"pick": pick, "rows": [rows[i] for i in pick],
+                   "seconds": time.time() - t}, fh)
+
+
+def ultralong_run(dev, workdir, proc):
+    """Phase 15: UL_RUN's queries against its reads through cli.main
+    (`mmcov`, phase 5's settings): no host-fixed row, at least half the
+    rows stepped at the wide rungs, B4 launched past 2^20 anchors; the
+    UL_CHECK rows equal the benchmark's plain reference (the side
+    process proc). Returns the launches, the B3 / B4 launches by rung
+    and their summed bound."""
+    import torch
+    from longqc_tpu_torch import cli
+    from longqc_tpu_torch.ops import _ext
+
+    run = UL_RUN
+    phase = run["phase"]
+    tpath, qpath = (os.path.join(workdir, "ul_%s.fq" % n)
+                    for n in ("targets", "queries"))
+    while not os.path.exists(qpath):
+        if proc.poll() is not None:
+            side_wait(proc, "%s's data" % phase)
+            raise AssertionError("%s: no data" % phase)
+        time.sleep(1)
+    stats_path = os.path.join(workdir, "ul_stats.json")
+    argv = ["mmcov", "-k", str(run["k"]), "-w", str(run["w"]), "-p",
+            str(run["p"]), "-q", str(run["q"]), "-l", "0", "--device",
+            str(dev), "--stats", stats_path, tpath, qpath]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launches()
+    buf = io.StringIO()
+    t = time.time()
+    with redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = dict(_ext.LAUNCHES)
+    rungs, path_bound = ringprop_rungs(_ext.LAUNCH_SHAPES)
+    peak_mem = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise AssertionError("%s: mmcov returned %d" % (phase, rc))
+    with open(stats_path) as f:
+        stats = json.load(f)
+    rows = buf.getvalue().rstrip("\n").split("\n")
+    ctr = stats["spans"]["counters"]
+    n = run["n_long"] + run["n_other"]
+    log("mmcov %s ul_targets.fq ul_queries.fq" % " ".join(argv[1:-2]))
+    log("%s: %d reads of %d-%d bp, ~%.1fx of %d bp; queries the %d longest "
+        "and %d others: wall %.2f s; phase_s %s; step calls %d, retry "
+        "steps %d, host-fixed rows %d; wide rows %d (slots %d, anchors "
+        "%d); kernel launches %s; max_memory_allocated %.2f GB" % (
+            phase, run["n_targets"], run["min_len"], run["max_len"],
+            run["n_targets"] * (run["min_len"] + run["max_len"]) / 2
+            / run["genome"], run["genome"], run["n_long"], run["n_other"],
+            wall, json.dumps({k: round(v, 3) for k, v in
+                                             stats["phase_s"].items()}),
+            stats["device_calls"], stats["retry_steps"],
+            stats["host_fixed_rows"], ctr.get("step.wide_rows", 0),
+            ctr.get("step.wide_slots", 0), ctr.get("step.wide_anchors", 0),
+            launches, peak_mem / 1e9))
+    log_rungs(phase, rungs, path_bound)
+    if len(rows) != n:
+        raise AssertionError("%s: %d rows for %d queries"
+                             % (phase, len(rows), n))
+    if stats["host_fixed_rows"] or stats["host_only_parts"]:
+        raise AssertionError("%s: %d host-fixed rows, %d host-only parts"
+                             % (phase, stats["host_fixed_rows"],
+                                stats["host_only_parts"]))
+    if 2 * ctr.get("step.wide_rows", 0) < n:
+        raise AssertionError("%s: %d of %d rows at the wide rungs"
+                             % (phase, ctr.get("step.wide_rows", 0), n))
+    if not any(A > (1 << 20) for A in rungs.get("minrank", {})):
+        raise AssertionError("%s: B4 never launched past 2^20 anchors"
+                             % phase)
+    if launches["chain"] != stats["device_calls"]:
+        raise AssertionError("%s: %d step calls but %d B2 launches"
+                             % (phase, stats["device_calls"],
+                                launches["chain"]))
+    t = time.time()
+    side_wait(proc, "%s's reference" % phase)
+    with open(os.path.join(workdir, "ul_rows.json")) as f:
+        want = json.load(f)
+    bad = [i for i, r in zip(want["pick"], want["rows"]) if rows[i] != r]
+    if bad:
+        raise AssertionError("%s: %d of %d rows differ from the plain "
+                             "reference (first: query %d)"
+                             % (phase, len(bad), len(want["pick"]), bad[0]))
+    log("%s: the rows of the queries %s (by length, ranks %s from the "
+        "longest) equal the plain reference (%.1f s on CPU tensors in a "
+        "side process, waited %.1f s)" % (phase, want["pick"],
+                                          list(UL_CHECK), want["seconds"],
+                                          time.time() - t))
+    return launches, rungs, path_bound
+
+
 def main():
     t_all = time.time()
     if not os.path.isdir(os.path.join(HERE, "longqc_tpu_torch")):
@@ -2486,14 +2786,16 @@ def main():
     # phase 9's part is made by a side process from here on
     workdir = tempfile.mkdtemp(prefix="longqc_smoke_")
     try:
-        run_phases(dev, workdir, side_start("big-data", workdir), t_all)
+        run_phases(dev, workdir, {"big-data": side_start("big-data",
+                                                         workdir)}, t_all)
     finally:
         side_stop()
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-def run_phases(dev, workdir, big_data, t_all):
-    """Phases 2-14 and the result lines."""
+def run_phases(dev, workdir, sides, t_all):
+    """Phases 2-15 and the result lines; sides: the side processes by
+    name."""
     import torch
     from concurrent.futures import ThreadPoolExecutor
     from longqc_tpu_torch.ops import _ext
@@ -2527,6 +2829,10 @@ def run_phases(dev, workdir, big_data, t_all):
     res = check_sketch_variants(dev)
     log("phase 3, B1: %.1f s" % (time.time() - t))
     res.update(check_chain_ringprop(dev, 12))
+    # phase 15's data and the wide rungs' plain versions, on the CPU
+    # beside phases 4-15
+    for name in ("ul-data",) + tuple(WIDE_SIDES):
+        sides[name] = side_start(name, workdir)
 
     # --- phase 4: small end to end; at w = 40 the run-time-ring B1
     # variants sketch the index tiles and the queries
@@ -2557,7 +2863,7 @@ def run_phases(dev, workdir, big_data, t_all):
                                                           HIFI_RUN)
     log("phase 8 %.1f s" % (time.time() - t))
     t = time.time()
-    launches9 = big_part_run(dev, workdir, big_data)
+    launches9 = big_part_run(dev, workdir, sides["big-data"])
     log("phase 9 %.1f s" % (time.time() - t))
     # phase 10: the port's sampleqc on phase 5's and phase 7's reads
     from longqc_tpu_torch.engine.pipeline import \
@@ -2595,6 +2901,14 @@ def run_phases(dev, workdir, big_data, t_all):
     del targets5
     log("phase 14b %.1f s" % (time.time() - t))
     check_adapter_recheck(workdir, recheck10a)
+    # phase 15: rows past the top anchor rung; then phase 3 at the wide
+    # rungs' shapes against the side processes' plain versions
+    t = time.time()
+    launches15, *rungs15 = ultralong_run(dev, workdir, sides["ul-data"])
+    log("phase 15 %.1f s" % (time.time() - t))
+    t = time.time()
+    check_wide_rungs(dev, workdir, [sides[n] for n in WIDE_SIDES], res)
+    log("phase 3 at the wide rungs %.1f s" % (time.time() - t))
 
     log("total %.1f s" % (time.time() - t_all))
     # each kernel's launches on its own path: phase 5, the u64 B1's
@@ -2614,7 +2928,8 @@ def run_phases(dev, workdir, big_data, t_all):
                  "library_ms": None, "shape": r["shape"]}
         entry.update({key: val for key, val in r.items()
                       if key.startswith(("ms_", "plain_ms_", "bound_ms_",
-                                         "kernel_alone_ms", "plan_ms"))})
+                                         "plain_cpu_ms_", "kernel_alone_ms",
+                                         "plan_ms"))})
         if name.startswith("sketch"):
             entry["resources"] = {
                 "%d slots" % wm: v for (n, wm), v in sorted(resources.items())
@@ -2636,7 +2951,8 @@ def run_phases(dev, workdir, big_data, t_all):
                            ("batched_chainer", launches12),
                            ("v1_chainer", launches12_v1),
                            ("phase14a", launches14a),
-                           ("phase14b", launches14b)):
+                           ("phase14b", launches14b),
+                           ("phase15", launches15)):
             if name in l10:
                 entry["launches_" + phase] = l10[name]
         if name in launches14a:
@@ -2646,7 +2962,8 @@ def run_phases(dev, workdir, big_data, t_all):
             entry["launches_hpc_filter"] = hpc_launches[name]
         for phase, (rungs, path_bound) in (("phase5", rungs5),
                                            ("hpc_filter", rungs7),
-                                           ("phase8", rungs8)):
+                                           ("phase8", rungs8),
+                                           ("phase15", rungs15)):
             if name in rungs:
                 entry["launches_by_A_" + phase] = rungs[name]
                 entry["path_bound_ms_" + phase] = path_bound[name]
@@ -2658,7 +2975,10 @@ def run_phases(dev, workdir, big_data, t_all):
         "count": torch.cuda.device_count()}}))
 
 
-SIDE.update({"big-data": big_part_data, "adapters": adapter_recheck})
+SIDE.update({"big-data": big_part_data, "adapters": adapter_recheck,
+             "ul-data": ul_data})
+SIDE.update({name: (lambda args: lambda workdir: wide_plain(workdir, *args))(
+    args) for name, args in WIDE_SIDES.items()})
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--side"]:

@@ -67,9 +67,11 @@ void peak_pass(T f, T v, T p, T peak, int64_t J) {
                "peak");
 }
 
-void minrank_pass(T p, T own, T r, int64_t J) {
+void minrank_pass(T p, T own, T r, T mark, int64_t J) {
+  // an empty mark: the pending mask in shared memory
   const c10::cuda::CUDAGuard guard(p.device());
   check_launch(lq_minrank_pass(p.data_ptr(), own.data_ptr(), r.data_ptr(),
+                               mark.numel() ? mark.data_ptr() : nullptr,
                                (int)p.size(0), (int)p.size(1), (int)J,
                                stream_of(p)),
                "minrank");

@@ -26,8 +26,10 @@ int lq_chain_fill(const void* axh, const void* axl, const void* aq,
 int lq_peak_pass(const void* f, const void* v, const void* p, void* peak,
                  int Q, int A, int J, void* stream);
 
-int lq_minrank_pass(const void* p, const void* own, void* r, int Q, int A,
-                    int J, void* stream);
+// mark: null (the pending mask in shared memory, A <= 2^20) or Q x
+// ceil(A / 32) words of device memory
+int lq_minrank_pass(const void* p, const void* own, void* r, void* mark,
+                    int Q, int A, int J, void* stream);
 
 int lq_extend_fill(const void* q, const void* ql, const void* t,
                    const void* tl, void* out, int B, int Lq, int Lt, int W,

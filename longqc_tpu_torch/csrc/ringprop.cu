@@ -61,7 +61,10 @@
 //    anchor (atomicOr finds its bit clear) stores the value; after a
 //    __syncthreads the others atomicMin into it. A chunk reads its
 //    pending values (L2, not L1) only for marked anchors, so the row
-//    needs no INF32 pre-pass. The mask (A / 8 bytes) limits A to 2^20.
+//    needs no INF32 pre-pass. The mask takes A / 8 bytes: up to
+//    A = 2^20 it lives in shared memory; past that the caller hands in
+//    a (Q, ceil(A / 32)) word array in device memory (`gmark`), which
+//    the block clears and reads through L2, like the pending values.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,7 +75,7 @@
 #define RP_CHUNK 4096                     // anchors per chunk
 #define RP_THREADS 1024                   // threads per block (one row)
 #define RP_EPT (RP_CHUNK / RP_THREADS)    // anchors per thread per chunk
-#define RP_MAX_A (1 << 20)                // B4's pending mask fits smem
+#define RP_SMEM_MARK_A (1 << 20)          // B4's pending mask fits smem
 
 namespace {
 
@@ -180,17 +183,20 @@ __global__ void __launch_bounds__(RP_THREADS, 1)
 __global__ void __launch_bounds__(RP_THREADS, 1)
     lq_minrank_kernel(const int32_t* __restrict__ p,
                       const int32_t* __restrict__ own, int32_t* r, int A,
-                      int J) {
+                      int J, uint32_t* gmark) {
   extern __shared__ int32_t sm[];
   int32_t* M = sm;                    // C subtree minima
   int32_t* anc = M + RP_CHUNK;        // C ancestor pointers (-1: none)
   int32_t* buf = anc + RP_CHUNK;      // 2 buffers x (p, own) x C
-  uint32_t* mark = (uint32_t*)(buf + 4 * RP_CHUNK);  // pending bits, row
   const size_t b = (size_t)blockIdx.x * A;
   const int nch = (A + RP_CHUNK - 1) / RP_CHUNK;
   const int tid = threadIdx.x;
+  const int words = (A + 31) / 32;
+  // pending bits of the row: shared memory, or the row's words of gmark
+  uint32_t* mark = gmark ? gmark + (size_t)blockIdx.x * words
+                         : (uint32_t*)(buf + 4 * RP_CHUNK);
 
-  for (int k = tid; k < (A + 31) / 32; k += RP_THREADS) mark[k] = 0u;
+  for (int k = tid; k < words; k += RP_THREADS) mark[k] = 0u;
 
   // step s handles chunk nch - 1 - s (the row backwards)
   auto load = [&](int s) {
@@ -223,7 +229,8 @@ __global__ void __launch_bounds__(RP_THREADS, 1)
       if (i < n) {
         const int gi = c0 + i, pi = sp[i];
         int m = so[i];
-        if ((mark[gi >> 5] >> (gi & 31)) & 1u) m = min(m, __ldcg(r + b + gi));
+        const uint32_t mw = gmark ? __ldcg(mark + (gi >> 5)) : mark[gi >> 5];
+        if ((mw >> (gi & 31)) & 1u) m = min(m, __ldcg(r + b + gi));
         int a = -1;
         if (pi >= 0 && pi < gi && gi - pi <= J) {
           if (pi >= c0)
@@ -310,16 +317,18 @@ extern "C" int lq_peak_pass(const void* f, const void* v, const void* p,
   return (int)cudaGetLastError();
 }
 
-extern "C" int lq_minrank_pass(const void* p, const void* own, void* r, int Q,
-                               int A, int J, void* stream) {
+extern "C" int lq_minrank_pass(const void* p, const void* own, void* r,
+                               void* mark, int Q, int A, int J,
+                               void* stream) {
   if (Q <= 0 || A <= 0) return 0;
-  if (A > RP_MAX_A) return (int)cudaErrorInvalidValue;
+  if (A > RP_SMEM_MARK_A && !mark) return (int)cudaErrorInvalidValue;
   const int smem = 6 * RP_CHUNK * (int)sizeof(int32_t) +
-                   (A + 31) / 32 * (int)sizeof(uint32_t);
+                   (mark ? 0 : (A + 31) / 32 * (int)sizeof(uint32_t));
   cudaError_t e = cudaFuncSetAttribute(
       lq_minrank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   lq_minrank_kernel<<<Q, RP_THREADS, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)p, (const int32_t*)own, (int32_t*)r, A, J);
+      (const int32_t*)p, (const int32_t*)own, (int32_t*)r, A, J,
+      (uint32_t*)mark);
   return (int)cudaGetLastError();
 }

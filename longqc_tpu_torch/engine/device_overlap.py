@@ -57,6 +57,7 @@ minimap2-coverage.c:545-617.
 """
 
 import concurrent.futures as cf
+import copy
 import os
 import threading
 from bisect import bisect_left
@@ -93,6 +94,26 @@ A_BUCKETS = (2048, 8192, 32768, 131072)
 # the bound is memory: a step at rung A holds ~40 (Q, A) int32/int64
 # temporaries, ~5.4 GB at the 262144 top rung
 A_LADDER = (1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072, 262144)
+
+
+def _wide_ladder(top, lanes):
+    """The rungs past `top`: doubling while one lane of the rung fits
+    the footprint of `lanes` lanes at `top`."""
+    out = []
+    A = 2 * top
+    while A <= top * lanes:
+        out.append(A)
+        A *= 2
+    return tuple(out)
+
+
+# rows past the top rung step at wider rungs on fewer lanes, in the
+# footprint of one step over the group's lanes at the top rung (the
+# wide rungs): 64 lanes at 524288, 32 at 1048576, one at GROUP_Q x
+# 262144. ROW_ANCHORS_MAX is the largest row that steps on the card (the
+# engine's row_anchors_max at its defaults); a row past it is computed
+# by the host spec
+ROW_ANCHORS_MAX = _wide_ladder(A_LADDER[-1], GROUP_Q)[-1]
 # per-part read-count paddings (rid-indexed arrays); rid packs into 24
 # bits
 B_PADS = (8192, 1 << 17, 1 << 21, 1 << 24)
@@ -685,11 +706,16 @@ class _Shard:
     shard over the whole group on the group's device holds views of the
     group's tensors, so the one-device run copies nothing."""
 
+    INPUTS = ("qps", "qcnt", "n_slots", "n_exp", "qlen", "qvalid", "qspan")
+    STATE = ("lam", "lam2", "avgk_set", "avgk_val", "m_cnts")
+
     def __init__(self, g, lo, hi, device):
         self.lo, self.hi, self.device = lo, hi, device
+        self.idx = None
         self.qps, self.qcnt, self.n_slots, self.n_exp, self.qlen, \
             self.qvalid = (self.put(t) for t in (g.qps, g.qcnt, g.n_slots,
                                                  g.n_exp, g.qlen, g.qvalid))
+        self.qspan = self.put(g.qspan) if g.hpc else None
         L = hi - lo
         self.lam = torch.zeros(L, dtype=_I64, device=device)
         self.lam2 = torch.zeros(L, dtype=_I64, device=device)
@@ -701,10 +727,32 @@ class _Shard:
 
     def put(self, a):
         """This shard's lanes of a group-wide tensor or numpy array, on
-        the shard's device (a view where they already lie there)."""
+        the shard's device (a view where they already lie there; on a
+        shard of some of its lanes, `take`, those lanes gathered)."""
         if isinstance(a, np.ndarray):
             a = torch.from_numpy(a)
-        return a[self.lo:self.hi].to(self.device)
+        a = a[self.lo:self.hi].to(self.device)
+        return a if self.idx is None else a.index_select(0, self.idx)
+
+    def take(self, lanes):
+        """A shard of `lanes` (indices into this shard's lanes) alone:
+        their inputs and accumulators gathered; give_back scatters its
+        accumulators back."""
+        sub = copy.copy(self)
+        sub.idx = torch.tensor(lanes, dtype=_I64, device=self.device)
+        for name in self.INPUTS + self.STATE:
+            t = getattr(self, name)
+            if t is not None:
+                setattr(sub, name, t.index_select(0, sub.idx))
+        return sub
+
+    def give_back(self, sub):
+        """Scatter the accumulators of `sub` (a take of this shard) back
+        to their lanes."""
+        for name in self.STATE:
+            t = getattr(self, name)
+            if t is not None:
+                t.index_copy_(0, sub.idx, getattr(sub, name))
 
 
 class _Group:
@@ -924,11 +972,28 @@ class _PartIndex:
 PHASE_SPANS = {"stage": ("group.stage",), "part_wait": ("part.wait",),
                "index": ("part.prep", "index.build"),
                "count": ("step.count",),
-               "step": ("step.launch", "step.pull", "step.retry"),
+               "step": ("step.launch", "step.pull", "step.retry",
+                        "step.wide"),
                "pull": ("step.unpack",), "host_fix": ("step.host_fix",),
                "finalize": ("finalize",)}
 INDEX_SPANS = {"pack": ("part.pack",), "tiles": ("index.tiles",),
                "merge": ("index.merge",)}
+
+
+def _wide_batches(rows, nq, rungs, budget):
+    """Sub-batches [(A, rows)] of the rows past the top rung: each row
+    at the smallest of `rungs` that holds its count-pass anchors nq[r],
+    the rows of one rung in batches of at most budget // A lanes, largest
+    rows first."""
+    by_rung = {}
+    for r in sorted(rows, key=lambda r: -int(nq[r])):
+        A = next(a for a in rungs if a >= nq[r])
+        by_rung.setdefault(A, []).append(r)
+    out = []
+    for A in sorted(by_rung, reverse=True):
+        rs, cap = by_rung[A], budget // A
+        out += [(A, rs[i:i + cap]) for i in range(0, len(rs), cap)]
+    return out
 
 
 def _a_ladder(a_ladder, on_gpu):
@@ -969,8 +1034,13 @@ class DeviceOverlapEngine:
         as in the JAX engine.
 
         a_ladder: the anchor rungs (default: LONGQC_A_LADDER, else by
-        device type, _a_ladder). The JAX engine's `interpret=` (Pallas
-        only) has no counterpart."""
+        device type, _a_ladder). A row past its top steps in a
+        sub-batch of fewer lanes at a wider rung (`wide_ladder`, in the
+        footprint of the group's lanes at the top rung), up to
+        `row_anchors_max` anchors (ROW_ANCHORS_MAX by default on the
+        card); past that, and under a device list, it is computed by
+        the host spec. The JAX engine's `interpret=`
+        (Pallas only) has no counterpart."""
         self.hpc = cfg.index.is_hpc
         if self.hpc and 2 * cfg.index.k > 30:
             # HPC keys carry hash << 8 | span and the hash rides int32
@@ -1014,6 +1084,10 @@ class DeviceOverlapEngine:
         self.max_index_entries = di.INDEX_MAX
         self.lanes_per_shard = lanes_per_shard
         self.lanes = lanes_per_shard * len(self.devices)
+        # rows past the top rung: wider rungs on fewer lanes (one device)
+        self.wide_ladder = () if self.sharded else \
+            _wide_ladder(self.a_ladder[-1], self.lanes)
+        self.row_anchors_max = (self.wide_ladder or self.a_ladder)[-1]
         self.queries = query_reads
         by_bucket = {}
         for i, r in enumerate(query_reads):
@@ -1152,50 +1226,58 @@ class DeviceOverlapEngine:
                                     pidx.rid_rank, pidx.mid_occ))
             self.n_index_copies += 1
 
-    def _step_group(self, g, pidx, qrank, qbisect, qvalid, A, left, occ):
+    def _step_group(self, g, pidx, qrank, qbisect, qvalid, A, left, occ,
+                    lanes=None):
         """One (part x group) step at anchor rung A, each shard on its
         own device: every shard's work is launched before anything is
         pulled. qrank / qbisect: per-lane numpy arrays; qvalid: per-lane
         numpy row mask (None: the group's own); left/occ: the count
-        pass's seed-lookup tables. Returns per-shard (packed_small,
+        pass's seed-lookup tables. lanes: step only these lanes of the
+        group (one shard), their inputs and accumulators gathered
+        (_Shard.take) and the accumulators scattered back; the pulls then
+        hold len(lanes) lanes. Returns per-shard (packed_small,
         events_full) lists."""
         st = self._static(g, A)
+        shards = g.shards if lanes is None else [g.shards[0].take(lanes)]
         if self.hpc:
-            return self._step_group_hpc(g, pidx, qrank, qbisect, qvalid, st,
-                                        left, occ)
-        smalls, fulls = [], []
-        for sh in g.shards:
-            qv = sh.qvalid if qvalid is None else sh.put(qvalid)
-            (sh.lam, sh.lam2, sh.avgk_set, sh.m_cnts, small,
-             full) = _step_impl(
-                *pidx.copies[sh.device], sh.put(left), sh.put(occ), sh.qps,
-                sh.qcnt, sh.n_slots, sh.n_exp, sh.qlen, sh.put(qrank),
-                sh.put(qbisect), qv, sh.lam, sh.lam2, sh.avgk_set,
-                sh.m_cnts, self.pen_tab[sh.device], st)
-            smalls.append(small)
-            fulls.append(full)
+            smalls, fulls = self._step_group_hpc(shards[0], pidx, qrank,
+                                                 qbisect, qvalid, st, left,
+                                                 occ)
+        else:
+            smalls, fulls = [], []
+            for sh in shards:
+                qv = sh.qvalid if qvalid is None else sh.put(qvalid)
+                (sh.lam, sh.lam2, sh.avgk_set, sh.m_cnts, small,
+                 full) = _step_impl(
+                    *pidx.copies[sh.device], sh.put(left), sh.put(occ),
+                    sh.qps, sh.qcnt, sh.n_slots, sh.n_exp, sh.qlen,
+                    sh.put(qrank), sh.put(qbisect), qv, sh.lam, sh.lam2,
+                    sh.avgk_set, sh.m_cnts, self.pen_tab[sh.device], st)
+                smalls.append(small)
+                fulls.append(full)
+        if lanes is not None:
+            g.shards[0].give_back(shards[0])
         self.n_device_calls += 1
         return smalls, fulls
 
-    def _step_group_hpc(self, g, pidx, qrank, qbisect, qvalid, st, left,
+    def _step_group_hpc(self, sh, pidx, qrank, qbisect, qvalid, st, left,
                         occ):
-        """Two-phase HPC step (one shard): anchors and span sums on the
-        device; per row, the f64-exact gap-penalty table of its mean
+        """Two-phase HPC step (one shard, sh): anchors and span sums on
+        the device; per row, the f64-exact gap-penalty table of its mean
         anchor span (the host spec's avg_qspan) and its kept mean span
         (state.avg_k) on the host; then the chain fill and the accounting
         on the device."""
-        sh, = g.shards
         irid, ips, seq_lens, rid_rank, mid_occ = pidx.copies[sh.device]
         with span("step.hpc_a"):
             anchors, stats = _step_hpc_a(
-                irid, ips, rid_rank, mid_occ, left, occ, g.qps, g.qcnt,
-                g.n_slots, g.qspan, g.qlen, sh.put(qrank), sh.put(qbisect),
-                st)
+                irid, ips, rid_rank, mid_occ, sh.put(left), sh.put(occ),
+                sh.qps, sh.qcnt, sh.n_slots, sh.qspan, sh.qlen,
+                sh.put(qrank), sh.put(qbisect), st)
             stats_np = stats.cpu().numpy()
         with span("step.hpc_tables"):
             bw = self.cfg.map.bw
-            pen = np.zeros((self.lanes, bw + 1), np.int32)
-            kept_avg = np.zeros(self.lanes, np.float32)
+            pen = np.zeros((len(stats_np), bw + 1), np.int32)
+            kept_avg = np.zeros(len(stats_np), np.float32)
             for r, (n_a, ssum, nk, kss, _nq) in enumerate(stats_np.tolist()):
                 if nk > 0:
                     kept_avg[r] = np.float32(kss / nk)
@@ -1206,19 +1288,19 @@ class DeviceOverlapEngine:
             (sh.lam, sh.lam2, sh.avgk_set, sh.avgk_val, sh.m_cnts, small,
              full) = _step_hpc_b(
                 anchors, seq_lens, sh.qlen, qv, sh.n_exp, sh.lam, sh.lam2,
-                sh.avgk_set, sh.avgk_val, sh.m_cnts, sh.put(pen),
-                sh.put(kept_avg), st)
-        self.n_device_calls += 1
+                sh.avgk_set, sh.avgk_val, sh.m_cnts,
+                torch.from_numpy(pen).to(sh.device),
+                torch.from_numpy(kept_avg).to(sh.device), st)
         return [small], [full]
 
-    def _unpack_pull(self, smalls_np, fulls):
+    def _unpack_pull(self, smalls_np, fulls, L=None):
         """Decode a step's packed pulls, one [flags | ev_n | compact
-        events] block per shard, into (flags (lanes,), per-row event
-        arrays). A shard past EV_B events pulls its uncompacted events
-        instead."""
-        L = self.lanes_per_shard
-        flags = np.empty(self.lanes, np.int32)
-        ev_rows = [None] * self.lanes
+        events] block of L lanes (default: a shard's) per shard, into
+        (flags, per-row event arrays). A block past EV_B events pulls
+        its uncompacted events instead."""
+        L = L or self.lanes_per_shard
+        flags = np.empty(L * len(smalls_np), np.int32)
+        ev_rows = [None] * (L * len(smalls_np))
         for s, (b, full) in enumerate(zip(smalls_np, fulls)):
             flags[s * L:(s + 1) * L] = b[:L]
             en = b[L:2 * L]
@@ -1254,8 +1336,9 @@ class DeviceOverlapEngine:
         return [r for r in want
                 if flags_np[r] or g.perm_host[r] or r in forced]
 
-    def _pull_step(self, smalls, fulls):
-        return self._unpack_pull([s.cpu().numpy() for s in smalls], fulls)
+    def _pull_step(self, smalls, fulls, L=None):
+        return self._unpack_pull([s.cpu().numpy() for s in smalls], fulls,
+                                 L=L)
 
     def _retry(self, g, pidx, qrank, qbisect, rows, flags_np, ev_rows, A,
                left, occ, progress):
@@ -1273,10 +1356,38 @@ class DeviceOverlapEngine:
                 ev_rows[r] = ev_rows2[r]
         return self._commit_rows(g, rows, flags_np, ev_rows, progress)
 
+    def _step_wide(self, g, pidx, qrank, qbisect, rows, nq, left, occ,
+                   flags_np, ev_rows, progress):
+        """The rows past the top rung, in sub-batches of fewer lanes at
+        wider rungs (_wide_batches), each batch's lanes stepped alone
+        (_step_group's `lanes`) and its clean rows committed; its flags
+        and events go to flags_np / ev_rows. Returns the rows still
+        needing work. One span `step.wide` a batch covers its launch,
+        pull, unpack and commit (its `step.commit` inside)."""
+        bad = []
+        for A, batch in _wide_batches(rows, nq, self.wide_ladder,
+                                      self.lanes * self.a_ladder[-1]):
+            with span("step.wide"):
+                smalls, fulls = self._step_group(g, pidx, qrank, qbisect,
+                                                 None, A, left, occ,
+                                                 lanes=batch)
+                fl, evs = self._pull_step(smalls, fulls, L=len(batch))
+                for j, r in enumerate(batch):
+                    flags_np[r], ev_rows[r] = fl[j], evs[j]
+                bad += self._commit_rows(g, batch, flags_np, ev_rows,
+                                         progress)
+            tracing.count("step.wide_rows", len(batch))
+            tracing.count("step.wide_slots", len(batch) * A)
+            tracing.count("step.wide_anchors",
+                          int(sum(int(nq[r]) for r in batch)))
+        return bad
+
     def _run_part(self, pidx, progress):
         """All query groups against one part: count pass -> step at the
-        smallest fitting rung; F_ANCH rows retry at bigger rungs, and
-        whatever remains flagged is recomputed exactly on the host."""
+        smallest fitting rung; F_ANCH rows retry at bigger rungs; rows
+        past the top rung step in sub-batches at wider rungs
+        (_step_wide), and whatever remains flagged, or is past the
+        widest rung, is recomputed exactly on the host."""
         if self.sharded and pidx.n_ranges:
             # as the JAX engine does with its range-sharded parts: the
             # rows are the same either way
@@ -1312,16 +1423,19 @@ class DeviceOverlapEngine:
                 live = np.zeros(self.lanes, bool)
                 live[:len(g.qids)] = True
                 live &= ~g.perm_host
-                nq_max = int(nq[live].max()) if live.any() else 0
-                rung = next((a for a in self.a_ladder if a >= nq_max), None)
-                forced = []
+                # rows past the top rung: stepped at the wide rungs up to
+                # row_anchors_max (wide), past it host-fixed (forced)
+                over = [r for r in range(len(g.qids))
+                        if live[r] and nq[r] > self.a_ladder[-1]]
+                wide = [r for r in over if nq[r] <= self.row_anchors_max]
+                forced = [r for r in over if nq[r] > self.row_anchors_max]
                 qvalid = None
-                if rung is None:
-                    rung = self.a_ladder[-1]
-                    forced = [r for r in range(len(g.qids))
-                              if live[r] and nq[r] > rung]
+                if over:
+                    live[over] = False
                     qvalid = g.qvalid.cpu().numpy().copy()
-                    qvalid[forced] = 0
+                    qvalid[over] = 0
+                nq_max = int(nq[live].max()) if live.any() else 0
+                rung = next(a for a in self.a_ladder if a >= nq_max)
                 smalls, fulls = self._step_group(g, pidx, qrank, qbisect,
                                                  qvalid, rung, left, occ)
             with span("step.pull"):
@@ -1330,7 +1444,9 @@ class DeviceOverlapEngine:
             with span("step.unpack"):
                 flags_np, ev_rows = self._unpack_pull(smalls_np, fulls)
             bad = self._commit_rows(g, list(range(len(g.qids))), flags_np,
-                                    ev_rows, progress, forced=forced)
+                                    ev_rows, progress, forced=over)
+            wide_set = set(wide)
+            bad = [r for r in bad if r not in wide_set]
             self.flag_counts[F_ANCH] += len(forced)
             # F_ANCH safety net: the count pass sized the rung, so this
             # fires only on a count/step disagreement
@@ -1343,6 +1459,10 @@ class DeviceOverlapEngine:
                 bad = [r for r in bad if r not in retry] + self._retry(
                     g, pidx, qrank, qbisect, retry, flags_np, ev_rows, A,
                     left, occ, progress)
+            if wide:
+                bad += self._step_wide(g, pidx, qrank, qbisect, wide, nq,
+                                       left, occ, flags_np, ev_rows,
+                                       progress)
             for r in bad:
                 if flags_np[r]:
                     self.flag_counts[int(flags_np[r])] += 1

@@ -27,8 +27,10 @@ import torch
 from longqc_tpu_torch.ops import _ext
 
 INF32 = 0x7FFFFFFF
-MAX_A = 1 << 20         # B4 keeps a pending bit per anchor of the row in
-                        # shared memory (csrc/ringprop.cu)
+# B4 keeps a pending bit per anchor of the row (csrc/ringprop.cu): in
+# shared memory for rows of up to SMEM_MARK_A anchors, past it in a
+# (Q, ceil(A / 32)) word array in device memory
+SMEM_MARK_A = 1 << 20
 
 
 def _same_shape(first, *rest):
@@ -58,14 +60,15 @@ def minrank_pass(p, own_rank, *, J=64):
     ins = [t.contiguous() for t in (p, own_rank)]
     _ext.require_cuda(*ins)
     _same_shape(*ins)
-    if ins[0].shape[1] > MAX_A:
-        raise ValueError("minrank_pass takes rows of at most %d anchors"
-                         % MAX_A)
+    Q, A = ins[0].shape
     out = torch.empty_like(ins[0])
+    # the kernel clears the mark words itself
+    mark = torch.empty((Q, (A + 31) // 32) if A > SMEM_MARK_A else (0,),
+                       dtype=torch.int32, device=out.device)
     lib = _ext.lib()
     _ext.LAUNCHES["minrank"] += 1
-    _ext.LAUNCH_SHAPES["minrank", out.shape[0], out.shape[1]] += 1
-    lib.minrank_pass(*ins, out, J)
+    _ext.LAUNCH_SHAPES["minrank", Q, A] += 1
+    lib.minrank_pass(*ins, out, mark, J)
     return out
 
 

@@ -207,8 +207,9 @@ def test_progress_matches_jax(jax_parts_run, inp, path):
 
 @pytest.mark.parametrize("how", ["argument", "environment"])
 def test_a_ladder_keeps_the_rows(jax_parts_run, monkeypatch, how):
-    """Other anchor rungs (a top rung of 256 sends some rows to the host
-    fix) give the rows of the default rungs, the JAX engine's."""
+    """Other anchor rungs (a top rung of 256 sends some rows to the wide
+    rungs, sub-batches of fewer lanes past the top) give the rows of the
+    default rungs, the JAX engine's."""
     reads = _reads()
     cfg_t, _ = _cfgs(**_PARTS)
     if how == "argument":
@@ -219,4 +220,5 @@ def test_a_ladder_keeps_the_rows(jax_parts_run, monkeypatch, how):
         eng = tdo.DeviceOverlapEngine(cfg_t, reads[:24], device="cpu")
     assert eng.a_ladder == (128, 256)
     assert eng.run(list(reads)) == jax_parts_run[0]
-    assert eng.n_host_fallback > 0
+    assert eng.spans["counters"]["step.wide_rows"] > 0
+    assert eng.n_host_fallback == 0

@@ -497,3 +497,79 @@ def test_part_pipeline_card_equals_cpu_run(dev):
     assert len(stats["part_ranges"]) >= 3
     for name in ("sketch", "chain", "peak", "minrank"):
         assert _ext.LAUNCHES[name] >= 1
+
+
+@pytest.mark.parametrize("case", ["path", "garbage", "far"])
+def test_minrank_pending_mask_in_device_memory(dev, case, monkeypatch):
+    """B4 with the row's pending bits in device memory (the layout of
+    rows past 2^20 anchors), forced at A = 10,000."""
+    monkeypatch.setattr(rp, "SMEM_MARK_A", 0)
+    Q, A = 16, 10000
+    _f, _v, p, own = (t.to(dev) for t in _hard_forest_rows(
+        case, np.random.RandomState(len(case) + 7), Q, A))
+    assert torch.equal(rp.minrank_pass(p, own, J=A),
+                       rp.minrank_pass_plain(p, own, J=A))
+
+
+def _ring_np(f, v, p, own):
+    """Peak and min-rank of one row with J = A, as plain loops."""
+    A = len(p)
+    peak = np.arange(A)
+    for i in range(A):
+        if v[i] > f[i] and 0 <= p[i] < i:
+            peak[i] = peak[p[i]]
+        elif v[i] > f[i] and p[i] >= i:
+            peak[i] = -1
+    r = own.astype(np.int64).copy()
+    for i in range(A - 1, -1, -1):
+        if 0 <= p[i] < i and r[i] < r[p[i]]:
+            r[p[i]] = r[i]
+    return peak, r
+
+
+def test_ringprop_kernels_on_rows_past_a_million_anchors(dev):
+    """B3 and B4 on rows of 2^20 + 5,000 anchors (the wide rungs' rows):
+    links up to 768 back and one in 50 anywhere back, across chunks."""
+    Q, A = 2, (1 << 20) + 5000
+    rng = np.random.RandomState(3)
+    f, v, p, own = (t.numpy() for t in _hard_forest_rows("far", rng, Q, A))
+    p = p.copy()
+    anywhere = rng.rand(Q, A) < 0.02
+    p[anywhere] = (rng.rand(int(anywhere.sum())) *
+                   np.nonzero(anywhere)[1]).astype(np.int32)
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in (f, v, p, own)]
+    peak = rp.peak_pass(*ins[:3], J=A).cpu().numpy()
+    mr = rp.minrank_pass(ins[2], ins[3], J=A).cpu().numpy()
+    for r in range(Q):
+        want_peak, want_mr = _ring_np(f[r], v[r], p[r], own[r])
+        assert np.array_equal(peak[r], want_peak)
+        assert np.array_equal(mr[r], want_mr)
+
+
+def test_wide_rows_card_equal_cpu_run(dev):
+    """Rows past a shrunk top rung stepped at the wide rungs on the card
+    (several rungs and lane counts; a query in the 1,048,576 bucket)
+    against the host spec on the CPU."""
+    from longqc_tpu_torch.config import (FltOpt, IndexOpt, MapOpt,
+                                         OverlapConfig)
+    from longqc_tpu_torch.engine import overlap_host as oh
+    from longqc_tpu_torch.engine.device_overlap import DeviceOverlapEngine
+    from util_synth import make_genome, mutate, sample_reads
+
+    cfg = OverlapConfig(index=IndexOpt(k=12, w=5),
+                        map=MapOpt(min_score_med=80, min_score_good=160),
+                        flt=FltOpt(min_ovlp=0))
+    rng = np.random.RandomState(11)
+    genome = make_genome(rng, 300000)
+    targets = sample_reads(rng, genome, 60, min_len=1000, max_len=8000,
+                           err=0.12, junk_frac=0.1)
+    big = mutate(rng, genome[10000:280000], 0.12)
+    queries = [["ul0", big, "I" * len(big)]] + targets[:40]
+    want = oh.overlap_run(list(targets), queries, cfg, device="cpu")
+    for ladder, lanes in (((512, 1024), 8), ((1024, 2048), 4)):
+        eng = DeviceOverlapEngine(cfg, queries, a_ladder=ladder,
+                                  lanes_per_shard=lanes)
+        assert eng.run(list(targets)) == want
+        assert eng.spans["counters"]["step.wide_rows"] > 0
+        assert eng.stats()["host_fixed_rows"] == 0

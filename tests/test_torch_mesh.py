@@ -67,8 +67,9 @@ def test_rows_match_jax_mesh_and_host_spec(jax_mesh_rows):
 
 
 # 20 queries in one length bucket, 3 parts, and a top anchor rung of 256,
-# so some rows of every part are host-fixed and their state carries to
-# the next part across the shards
+# so some rows of every part are past it: host-fixed under a device list,
+# their state carrying to the next part across the shards; on one device
+# stepped at the wide rungs
 _SHARD_CFG = dict(batch_size=45000)
 _SHARD_LADDER = (256,)
 
@@ -80,7 +81,8 @@ def _shard_run(devices, lanes_per_shard):
                                   devices=devices,
                                   lanes_per_shard=lanes_per_shard,
                                   a_ladder=_SHARD_LADDER)
-    return eng.run(list(reads)), eng.stats()
+    return eng.run(list(reads)), dict(eng.stats(),
+                                      counters=eng.spans["counters"])
 
 
 @pytest.fixture(scope="module")
@@ -95,7 +97,12 @@ def test_shards_match_single_device(single_device_run, shards, lanes):
     want_rows, want = single_device_run
     rows, got = _shard_run(["cpu"] * shards, lanes)
     assert rows == want_rows
-    assert got["host_fixed_rows"] == want["host_fixed_rows"] > 0
+    # the rows the one device steps past the top rung, the device list
+    # host-fixes
+    wide = want["counters"]["step.wide_rows"]
+    assert got["host_fixed_rows"] == want["host_fixed_rows"] + wide
+    assert wide > 0
+    assert "step.wide_rows" not in got["counters"]
     assert got["host_only_parts"] == want["host_only_parts"] == 0
     assert len(got["part_ranges"]) == 3
     assert got["shards"] == ["cpu"] * shards
