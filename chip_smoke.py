@@ -593,6 +593,35 @@ def rand_anchor_rows(rng, Q, A):
     return axh, axl, aq, nb
 
 
+def chain_pieces(axh, nb, fill):
+    """B2's split of rows sorted by x_hi, for the log: segments (runs of
+    one x_hi) a row, min / median / max, the longest segment, the
+    kernel's pieces a row (P) and, from its counters (PieceCounts) over
+    one call of fill(), the non-empty pieces and the longest piece."""
+    import numpy as np
+    import torch
+    from longqc_tpu_torch.ops.chain_cuda import count_pieces, pieces_per_row
+    Q, A = axh.shape
+    x, n = axh.cpu().numpy(), nb.cpu().numpy()
+    segs, longest = [], 0
+    for r in range(Q):
+        xr = x[r, :int(n[r])]
+        b = np.concatenate([[0], np.flatnonzero(xr[1:] != xr[:-1]) + 1,
+                            [len(xr)]])
+        segs.append(len(b) - 1)
+        longest = max(longest, int(np.diff(b).max()) if len(xr) else 0)
+    P = pieces_per_row(Q, torch.cuda.get_device_properties(
+        axh.device).multi_processor_count)
+    with count_pieces() as pc:
+        fill()
+    pieces, row_span, piece_span = next(iter(pc.sums.values())).tolist()
+    return ("segments a row %d / %d / %d (min / median / max), longest %d "
+            "anchors; P = %d pieces a row, %d non-empty, longest piece %d "
+            "of the longest row's %d anchors"
+            % (min(segs), int(np.median(segs)), max(segs), longest, P,
+               pieces, piece_span, row_span))
+
+
 def check_chain_ringprop(dev, k, bw=500):
     import numpy as np
     import torch
@@ -626,6 +655,8 @@ def check_chain_ringprop(dev, k, bw=500):
         for nm, a, b in (("f", fk, fp), ("p", pk, pp), ("v", vk, vp)):
             err = max(err, require_equal("chain %s %s" % (tab, nm), a, b))
         ms = cuda_ms(kern, 3)
+        log("B2 chain Q=%d A=%d, %s: %s" % (Q, A, tab,
+                                           chain_pieces(axh, nb, kern)))
         row_max = scan.amax(dim=1)
         b_ms, b_by = bound(nbytes(axh, axl, aq, span, nb, pen) + 3 * Q * A * 4,
                            int(scan.long().sum()) * OPS_PER_AGE)
@@ -852,6 +883,7 @@ def check_wide_rungs(dev, workdir, procs, out):
                                      got[r:r + 1],
                                      torch.from_numpy(d[nm]).to(dev)))
     ms = cuda_ms(kern, 3)
+    log("B2 chain Q=%d A=%d: %s" % (Q, A, chain_pieces(axh, nb, kern)))
     b_ms, _ = bound(nbytes(axh, axl, aq, span, nb, pen) + 3 * Q * A * 4, 0)
     scan = d["scan"]
     log("B2 chain Q=%d A=%d: row %d (%d anchors, ages scanned per anchor: "

@@ -45,7 +45,8 @@ void sketch_rows(T codes2, T nmask, T smask, T emask, T starts, T gids,
 }
 
 void chain_fill(T axh, T axl, T aq, T asp, T nb, T pen, T marks, T f, T p,
-                T v, int64_t bw, int64_t max_dist, int64_t max_skip) {
+                T v, T cnt, int64_t pieces, int64_t bw, int64_t max_dist,
+                int64_t max_skip) {
   // one penalty table for every row, or one per row
   const int pen_stride = pen.size(0) == 1 ? 0 : (int)pen.size(1);
   const c10::cuda::CUDAGuard guard(axh.device());
@@ -53,9 +54,9 @@ void chain_fill(T axh, T axl, T aq, T asp, T nb, T pen, T marks, T f, T p,
       lq_chain_fill(axh.data_ptr(), axl.data_ptr(), aq.data_ptr(),
                     asp.data_ptr(), nb.data_ptr(), pen.data_ptr(),
                     marks.data_ptr(), f.data_ptr(), p.data_ptr(),
-                    v.data_ptr(), (int)axh.size(0), (int)axh.size(1),
-                    (int)bw, pen_stride, (int)max_dist, (int)max_skip,
-                    stream_of(axh)),
+                    v.data_ptr(), cnt.data_ptr(), (int)axh.size(0),
+                    (int)axh.size(1), (int)pieces, (int)bw, pen_stride,
+                    (int)max_dist, (int)max_skip, stream_of(axh)),
       "chain");
 }
 

@@ -13,35 +13,58 @@
 // the max_skip walk breaks. There is no depth limit, so there is no
 // truncation flag and no retry at a deeper limit.
 //
-// Design: one warp per query row (one row per block, which also gives
-// each row its own penalty table in shared memory). The anchors of a
-// row are a serial recurrence; the parallelism is across the ages of
-// one anchor's scan, 32 at a time: lane l of chunk c scores age
-// 32c + l + 1. Chunk 0 (ages 1..32) lives in registers, as a window
-// that shifts by one lane per anchor (lane 0 takes the anchor just
-// written). Older chunks read the row's inputs and the kernel's own
-// f / p, written earlier by lane 0 of this warp (ordered by
-// __syncwarp, read through plain loads: no __ldg / const __restrict__
-// on the outputs). The scan stops at the first chunk whose oldest lane
-// is outside the window (rows are sorted by (x_hi, x_lo), so everything
-// older is outside too) or at the max_skip cut, so most anchors pay for
-// one chunk and only repeat-dense windows for more. Every age-ordered scan (running
-// max, the skip walk's sum and minimum) is a warp scan by shuffles with
-// a prefix handed on from chunk to chunk.
+// Design: the unit of work is a piece, a run of whole segments of one
+// row, where a segment is the anchors of one x_hi (one strand of one
+// target). An anchor's predecessors share its x_hi, a max_skip mark
+// t[p[j]] = i lands on the parent of a valid predecessor (same x_hi),
+// and v_pred reads v at the parent: so the fill of a row is the
+// concatenation of independent fills, one per segment, and a warp that
+// starts at a segment's first anchor with empty registers gives the
+// same f, p and v as one that walked the row from its start. A row is
+// cut at P nominal points (w * ceil(n / P)), each moved forward to the
+// next segment start (an upper bound of x_hi[c - 1] over [c, n): the
+// row is sorted), and piece w is [start_w, start_{w+1}); one warp walks
+// each piece. P comes from the launch (ops/chain_cuda.pieces_per_row:
+// about 32 warps an SM over the call's rows, more a row as a call has
+// fewer rows), and a block holds LQ_PIECE_WARPS pieces of one row, which
+// share its penalty table in shared memory. A row of one segment gets
+// one busy warp; empty pieces only initialise their share of the row.
 //
-// max_skip marks: the reference's t[] array, a (Q, A) int32 scratch the
-// kernel fills (t[j] = the anchor that last marked j). Marks from
-// younger lanes onto older lanes of the same chunk are resolved by
-// ballots; marks onto older chunks are written t[p[j]] = i after the
-// chunk's walk. A mark only ever targets an older entry and its value is
-// i, which no later anchor tests, so marks written by entries past the
-// cut are harmless and one pass gives the reference's cut (the TPU
-// kernel's second bounding pass has no counterpart).
+// A warp's walk: the anchors of its piece are a serial recurrence; the
+// parallelism is across the ages of one anchor's scan, 32 at a time:
+// lane l of chunk c scores age 32c + l + 1. Chunk 0 (ages 1..32) lives
+// in registers, as a window that shifts by one lane per anchor (lane 0
+// takes the anchor just written). Older chunks read the row's inputs
+// and the kernel's own f / p, written earlier by lane 0 of this warp
+// (ordered by __syncwarp, read through plain loads: no __ldg / const
+// __restrict__ on the outputs). An age that reaches before the piece's
+// start is outside the window. The scan stops at the first chunk whose
+// oldest lane is outside the window (rows are sorted by (x_hi, x_lo),
+// so everything older is outside too) or at the max_skip cut, so most
+// anchors pay for one chunk and only repeat-dense windows for more.
+// Every age-ordered scan (running max, the skip walk's sum and minimum)
+// is a warp scan by shuffles with a prefix handed on from chunk to
+// chunk.
 //
-// Bound: the per-anchor dependency chain (one to a few chunks of warp
-// scans of five shuffles, an L1-resident load per older chunk), with Q
-// warps in flight: latency, not bytes or operations. The int64 dr / dq
-// arithmetic is the reference's.
+// max_skip marks: the reference's t[] array, a (Q, A) int32 scratch
+// each warp sets to -1 over its piece (t[j] = the anchor that last
+// marked j). Marks from younger lanes onto older lanes of the same
+// chunk are resolved by ballots; marks onto older chunks are written
+// t[p[j]] = i after the chunk's walk. A mark only ever targets an older
+// entry and its value is i, which no later anchor tests, so marks
+// written by entries past the cut are harmless and one pass gives the
+// reference's cut (the TPU kernel's second bounding pass has no
+// counterpart).
+//
+// Counters (cnt, three int32): the non-empty pieces, the longest row
+// and the longest piece of the call, in anchors.
+//
+// Bound: a piece's per-anchor dependency chain (one to a few chunks of
+// warp scans of five shuffles, an L1-resident load per older chunk) is
+// latency; with Q x P warps in flight the card is bound by the
+// instruction throughput across warps, and a call lasts at least as
+// long as its longest piece's walk, which is at least its longest
+// segment's. The int64 dr / dq arithmetic is the reference's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,6 +73,8 @@
 
 #define LQ_NEG (-1000000000)
 #define LQ_FULL 0xffffffffu
+// pieces (warps) a block, of one row
+#define LQ_PIECE_WARPS 4
 
 namespace {
 
@@ -80,21 +105,42 @@ __device__ __forceinline__ int scan_add(int x, int lane) {
   return x;
 }
 
+// the first anchor at or after c that starts a segment of row x (sorted
+// over [0, n)): c itself, or the upper bound of x[c - 1] over [c, n)
+__device__ __forceinline__ int piece_start(const int32_t* x, int n, int c) {
+  if (c <= 0) return 0;
+  if (c >= n) return n;
+  const int32_t key = x[c - 1];
+  int lo = c, hi = n;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (x[mid] > key) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
+}
+
 }  // namespace
 
-__global__ void lq_chain_fill_kernel(
+__global__ void __launch_bounds__(32 * LQ_PIECE_WARPS) lq_chain_fill_kernel(
     const int32_t* __restrict__ axh, const int32_t* __restrict__ axl,
     const int32_t* __restrict__ aq, const int32_t* __restrict__ asp,
     const int32_t* __restrict__ nb, const int32_t* __restrict__ pen_g,
-    int32_t* tmark, int32_t* of, int32_t* op, int32_t* ov, int Q, int A,
-    int bw, int pen_stride, int max_dist, int max_skip) {
+    int32_t* tmark, int32_t* of, int32_t* op, int32_t* ov, int32_t* cnt,
+    int Q, int A, int P, int bw, int pen_stride, int max_dist,
+    int max_skip) {
   const int row = blockIdx.x;
   if (row >= Q) return;
   extern __shared__ int32_t pen[];
   const int32_t* pen_row = pen_g + (size_t)row * pen_stride;
-  const int lane = threadIdx.x;
-  for (int t = lane; t <= bw; t += 32) pen[t] = pen_row[t];
+  for (int t = threadIdx.x; t <= bw; t += blockDim.x) pen[t] = pen_row[t];
+  __syncthreads();
 
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.y * LQ_PIECE_WARPS + (threadIdx.x >> 5);
   const size_t ab = (size_t)row * A;
   const int32_t* rxh = axh + ab;
   const int32_t* rxl = axl + ab;
@@ -103,14 +149,22 @@ __global__ void lq_chain_fill_kernel(
   int32_t* rf = of + ab;
   int32_t* rp = op + ab;
   int32_t* rv = ov + ab;
-  const int n = min(nb[row], A);
-  for (int a = lane; a < A; a += 32) {
-    rt[a] = -1;
-    if (a >= n) {
-      rf[a] = 0;
-      rp[a] = -1;
-      rv[a] = 0;
-    }
+  const int n = max(0, min(nb[row], A));
+  // past n, shared by the row's P warps
+  for (int a = n + 32 * w + lane; a < A; a += 32 * P) {
+    rf[a] = 0;
+    rp[a] = -1;
+    rv[a] = 0;
+  }
+  const int step = (n + P - 1) / P;
+  const int s = piece_start(rxh, n, w * step);
+  const int e = piece_start(rxh, n, (w + 1) * step);
+  if (s >= e) return;
+  for (int a = s + lane; a < e; a += 32) rt[a] = -1;
+  if (lane == 0) {
+    atomicAdd(cnt, 1);
+    atomicMax(cnt + 2, e - s);
+    if (s == 0) atomicMax(cnt + 1, n);
   }
   __syncwarp();
 
@@ -118,9 +172,9 @@ __global__ void lq_chain_fill_kernel(
   int cxh = -1, cxl = 0, cq = 0, cf = 0, cp = -1, cv = 0;
   int pxh = 0, pxl = 0, pq = 0, ps = 0;
 
-  for (int i = 0; i < n; ++i) {
-    const int src = i & 31;
-    if (src == 0 && i + lane < n) {
+  for (int i = s; i < e; ++i) {
+    const int src = (i - s) & 31;
+    if (src == 0 && i + lane < e) {
       pxh = rxh[i + lane];
       pxl = rxl[i + lane];
       pq = rq[i + lane];
@@ -147,7 +201,7 @@ __global__ void lq_chain_fill_kernel(
         ep = cp;
         ev = cv;
         marked = false;  // anchor i has written no mark yet
-      } else if (j >= 0) {
+      } else if (j >= s) {
         exh = rxh[j];
         exl = rxl[j];
         eq = rq[j];
@@ -162,7 +216,7 @@ __global__ void lq_chain_fill_kernel(
         marked = false;
       }
       const long long dr = (long long)xl - exl;
-      const bool in_win = j >= 0 && exh == xh && dr >= 0 && dr <= max_dist;
+      const bool in_win = j >= s && exh == xh && dr >= 0 && dr <= max_dist;
       const long long dq = (long long)qi - eq;
       bool valid = in_win && dr != 0 && dq > 0 && dq <= max_dist;
       int sc = LQ_NEG;
@@ -253,19 +307,23 @@ __global__ void lq_chain_fill_kernel(
 
 extern "C" int lq_chain_fill(const void* axh, const void* axl, const void* aq,
                              const void* asp, const void* nb, const void* pen,
-                             void* tmark, void* of, void* op, void* ov, int Q,
-                             int A, int bw, int pen_stride, int max_dist,
-                             int max_skip, void* stream) {
+                             void* tmark, void* of, void* op, void* ov,
+                             void* cnt, int Q, int A, int P, int bw,
+                             int pen_stride, int max_dist, int max_skip,
+                             void* stream) {
   if (Q <= 0) return 0;
+  if (P <= 0 || P % LQ_PIECE_WARPS) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(bw + 1) * sizeof(int32_t);
   cudaError_t e = cudaFuncSetAttribute(
       lq_chain_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  lq_chain_fill_kernel<<<Q, 32, smem, (cudaStream_t)stream>>>(
+  const dim3 grid(Q, P / LQ_PIECE_WARPS);
+  lq_chain_fill_kernel<<<grid, 32 * LQ_PIECE_WARPS, smem,
+                         (cudaStream_t)stream>>>(
       (const int32_t*)axh, (const int32_t*)axl, (const int32_t*)aq,
       (const int32_t*)asp, (const int32_t*)nb, (const int32_t*)pen,
-      (int32_t*)tmark, (int32_t*)of, (int32_t*)op, (int32_t*)ov, Q, A, bw,
-      pen_stride, max_dist, max_skip);
+      (int32_t*)tmark, (int32_t*)of, (int32_t*)op, (int32_t*)ov,
+      (int32_t*)cnt, Q, A, P, bw, pen_stride, max_dist, max_skip);
   return (int)cudaGetLastError();
 }

@@ -17,11 +17,12 @@ int lq_sketch_rows(const void* codes2, const void* nmask, const void* smask,
                    void* pos, void* strand, int R, int W, int k, int w,
                    int CH, int NC, int wide, void* stream);
 
+// P pieces a row, a multiple of 4; cnt: three int32 counters, zeroed
 int lq_chain_fill(const void* axh, const void* axl, const void* aq,
                   const void* asp, const void* nb, const void* pen,
-                  void* tmark, void* of, void* op, void* ov, int Q, int A,
-                  int bw, int pen_stride, int max_dist, int max_skip,
-                  void* stream);
+                  void* tmark, void* of, void* op, void* ov, void* cnt,
+                  int Q, int A, int P, int bw, int pen_stride, int max_dist,
+                  int max_skip, void* stream);
 
 int lq_peak_pass(const void* f, const void* v, const void* p, void* peak,
                  int Q, int A, int J, void* stream);

@@ -74,7 +74,7 @@ from longqc_tpu_torch.engine import device_index as di
 from longqc_tpu_torch.engine import overlap_host as oh
 from longqc_tpu_torch.ops.chain import gap_penalty_table
 from longqc_tpu_torch.ops._ext import require_device
-from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill
+from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill, count_pieces
 from longqc_tpu_torch.ops.ringprop import INF32, minrank_pass, peak_pass
 from longqc_tpu_torch.ops.sketch import sketch_batch
 from longqc_tpu_torch.ops.sketch_cuda import sketch_tiles
@@ -1195,8 +1195,8 @@ class DeviceOverlapEngine:
             return pidx
 
         prepare = tracing.carry("part", prepare)
-        with cf.ThreadPoolExecutor(max_workers=1,
-                                   thread_name_prefix="longqc-part") as ex:
+        with count_pieces() as pieces, cf.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="longqc-part") as ex:
             fut = ex.submit(prepare)
             _ = self.groups
             while True:
@@ -1212,7 +1212,7 @@ class DeviceOverlapEngine:
                 self._run_part(pidx, progress)
                 pidx = None           # release the index before the next
         with span("finalize"):
-            return self._finalize()
+            return self._finalize(pieces)
 
     def _replicate(self, pidx):
         """The part index on each distinct device of the run: the
@@ -1565,9 +1565,12 @@ class DeviceOverlapEngine:
             if g.hpc:
                 sh.avgk_val = sh.put(avgkv)
 
-    def _finalize(self):
+    def _finalize(self, pieces):
+        """The rows; B2's counters (pieces, a PieceCounts) ride on the
+        first pull of every device and go to the run's counters."""
         cfg = self.cfg
         rows = [None] * len(self.queries)
+        pieces.stage()
         for g in self.groups:
             self._ensure_host_state(g)
             # every shard's reduction is launched before the first pull
@@ -1601,6 +1604,7 @@ class DeviceOverlapEngine:
                     q[0], len(q[1]), q[2], lam_r, lam2_r, div,
                     sorted(self.events[qi]), cfg.flt.min_coverage,
                     cfg.filter_mode)
+        pieces.record()
         return rows
 
 

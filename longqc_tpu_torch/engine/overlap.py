@@ -25,7 +25,7 @@ from longqc_tpu_torch.engine.device_overlap import (A_BUCKETS, A_LADDER,
                                                     overlap_run_device2)
 from longqc_tpu_torch.ops._ext import require_device
 from longqc_tpu_torch.ops.chain import gap_penalty_table
-from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill
+from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill, count_pieces
 
 logger = getLogger(__name__)
 
@@ -157,10 +157,13 @@ def _overlap_run_device(target_iter, query_reads, cfg, device, stats,
             logger.info("device engine unavailable for this config (%s); "
                         "using the batched-chainer path", e)
     chainer = DeviceChainer(device=device)
-    rows = oh.overlap_run(target_iter, query_reads, cfg,
-                          chain_many=chainer, parts=parts,
-                          index_cache=index_cache, device=device,
-                          progress=progress)
+    with count_pieces() as pieces:
+        rows = oh.overlap_run(target_iter, query_reads, cfg,
+                              chain_many=chainer, parts=parts,
+                              index_cache=index_cache, device=device,
+                              progress=progress)
+    # after the chainer's last pull of f, p, v
+    pieces.record()
     stats.update(engine="batched_chainer", **chainer.stats())
     logger.info("batched chainer: %d B2 calls, %d device rows, %d host "
                 "fallbacks", chainer.n_calls, chainer.n_device,

@@ -47,6 +47,28 @@ def window_depths(ax_hi, ax_lo, n_anchors, max_dist):
     return torch.where(on, idx - st, 0)
 
 
+def piece_starts(ax_hi, n_anchors, P):
+    """(Q, P + 1) int64: where each of the P pieces of the B2 kernel
+    (csrc/chain.cu) starts on each row, then n_anchors. Rows sorted by
+    ax_hi over their first n_anchors entries are cut at w * ceil(n / P),
+    each cut moved forward to the next start of a run of one ax_hi (a
+    segment), so piece w, [starts[w], starts[w + 1]), holds whole
+    segments; empty pieces start where the next one does."""
+    Q, A = ax_hi.shape
+    i64 = torch.int64
+    dev = ax_hi.device
+    n = n_anchors.to(i64).clamp(0, A)[:, None]
+    idx = torch.arange(A, dtype=i64, device=dev)[None, :]
+    key = torch.where(idx < n, ax_hi.to(i64), 1 << 40).contiguous()
+    cut = torch.minimum(torch.arange(P + 1, dtype=i64, device=dev)[None, :]
+                        * ((n + P - 1) // P), n)
+    prev = torch.gather(key, 1, (cut - 1).clamp(0, max(A - 1, 0))) \
+        if A else cut
+    ub = torch.searchsorted(key, prev.contiguous(), right=True) \
+        if A else cut
+    return torch.where(cut <= 0, 0, torch.where(cut >= n, n, ub))
+
+
 def chain_dp_batch(ax_hi, ax_lo, aq, aspan, n_anchors, pen_tab, *,
                    max_dist=10000, bw=500, max_skip=25, return_scan=False):
     """Batched chain-DP fill over the whole admissible window (plain

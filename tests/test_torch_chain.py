@@ -10,14 +10,16 @@ spec's f, p, v."""
 import numpy as np
 import pytest
 import torch
-from torch_util import np_, t32
+from torch_util import np_, segment_rows, t32
 
 from longqc_tpu.engine import overlap_host as joh
 from longqc_tpu.ops.chain_pallas import (chain_dp_batch_pallas,
                                          make_carry_pallas, penalty_limbs)
 from longqc_tpu_torch.engine import overlap_host as toh
-from longqc_tpu_torch.ops.chain import gap_penalty_table, window_depths
-from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill
+from longqc_tpu_torch.ops.chain import (chain_dp_batch, gap_penalty_table,
+                                        piece_starts, window_depths)
+from longqc_tpu_torch.ops.chain_cuda import (PIECE_WARPS, WARPS_PER_SM,
+                                             chain_dp_fill, pieces_per_row)
 
 Q, BW, K, MAX_DIST, MAX_SKIP = 128, 500, 12, 10000, 25
 MIN_CNT, MIN_SC = 3, 40
@@ -152,3 +154,100 @@ def test_chain_fill_deep_window_matches_host_spec():
     # parents deeper than any ring the JAX engine escalates to
     deep = (np.arange(A)[None, :] - p) > 256
     assert (deep & (p >= 0)).any()
+
+
+def _segments(axh, n):
+    """[(row, start, end)] of each run of one ax_hi in each row."""
+    out = []
+    for r in range(axh.shape[0]):
+        x = axh[r, :n[r]]
+        cut = np.flatnonzero(x[1:] != x[:-1]) + 1
+        b = np.concatenate([[0], cut, [len(x)]])
+        out += [(r, int(s), int(e)) for s, e in zip(b[:-1], b[1:])]
+    return out
+
+
+@pytest.mark.parametrize("tables", ["one", "per_row"])
+def test_chain_fill_of_a_row_is_its_segments_fills(tables):
+    """B2's independence across (strand, target) segments, which its
+    kernel's pieces rely on: the plain fill of whole rows equals, on
+    each ax_hi segment, the plain fill of that segment alone, with p
+    moved by the segment's start; a repeat-dense segment runs past
+    max_skip cuts."""
+    rng = np.random.RandomState(11 + (tables == "per_row"))
+    R, A = 3, 8192
+    axh, axl, aq, nb = segment_rows(rng, R, A, 200, long_lens=(1500,),
+                                    dense_len=1200)
+    avg = [12] if tables == "one" else [12 + r / 3 for r in range(R)]
+    pen = np.stack([gap_penalty_table(np.float32(a), BW) for a in avg])
+    span = np.full((R, A), K, np.int32)
+    whole = chain_dp_batch(t32(axh), t32(axl), t32(aq), t32(span), t32(nb),
+                           t32(pen), max_dist=MAX_DIST, bw=BW,
+                           max_skip=MAX_SKIP, return_scan=True)
+    f, p, v, scan = (np_(t) for t in whole)
+    segs = _segments(axh, nb)
+    assert len(segs) > 3 * 150
+    assert max(e - s for _, s, e in segs) >= 1200
+    # the dense segment: some anchor's scan stops short of its window
+    depth = _depth(axh, axl, nb)
+    assert ((scan < depth) & (scan > 0)).any()
+    # the segments as rows of their own, batched by length
+    by_len = {}
+    for sg in segs:
+        by_len.setdefault(next(b for b in (32, 256, A)
+                               if sg[2] - sg[1] <= b), []).append(sg)
+    for L, group in by_len.items():
+        cols = np.zeros((4, len(group), L), np.int32)
+        sn = np.zeros(len(group), np.int32)
+        for k, (r, s, e) in enumerate(group):
+            for c, a in enumerate((axh, axl, aq, span)):
+                cols[c, k, :e - s] = a[r, s:e]
+            sn[k] = e - s
+        spen = pen[[r if len(pen) > 1 else 0 for r, _, _ in group]]
+        sf, sp, sv = (np_(t) for t in chain_dp_batch(
+            *(t32(c) for c in cols), t32(sn), t32(spen), max_dist=MAX_DIST,
+            bw=BW, max_skip=MAX_SKIP))
+        for k, (r, s, e) in enumerate(group):
+            m = e - s
+            np.testing.assert_array_equal(f[r, s:e], sf[k, :m])
+            np.testing.assert_array_equal(
+                p[r, s:e], np.where(sp[k, :m] >= 0, sp[k, :m] + s, -1))
+            np.testing.assert_array_equal(v[r, s:e], sv[k, :m])
+
+
+@pytest.mark.parametrize("P", [4, 36, 264])
+def test_piece_starts_cut_rows_at_segment_starts(P):
+    """ops/chain.piece_starts (where the B2 kernel's P pieces of a row
+    start): monotone from 0 to n, each start at or after its nominal
+    cut w * ceil(n / P) and at a segment's start, and no segment start
+    skipped between a nominal cut and the piece start it moved to."""
+    rng = np.random.RandomState(P)
+    Q, A = 6, 4096
+    axh, _, _, nb = segment_rows(rng, Q, A, 120, long_lens=(900,),
+                                 dense_len=300)
+    nb[4] = 0                                  # an empty row
+    nb[5] = min(int(nb[5]), P // 2)            # a row shorter than P
+    st = np_(piece_starts(t32(axh), t32(nb), P))
+    assert st.shape == (Q, P + 1)
+    for r in range(Q):
+        n = int(nb[r])
+        s = st[r]
+        assert s[0] == 0 and s[-1] == n and (np.diff(s) >= 0).all()
+        x = axh[r, :n]
+        heads = {0, n} | set((np.flatnonzero(x[1:] != x[:-1]) + 1).tolist())
+        cuts = np.minimum(np.arange(P + 1) * -(-n // P), n)
+        for c, x in zip(cuts, s):
+            assert x in heads and x >= c
+            assert not any(c <= h < x for h in heads)
+
+
+def test_pieces_per_row_from_rows_and_sms():
+    """P grows as a call's rows shrink, in whole blocks of PIECE_WARPS
+    warps, the fewest that put WARPS_PER_SM warps on each SM."""
+    Qs = (128, 64, 32, 16, 1)
+    Ps = [pieces_per_row(Q, 132) for Q in Qs]
+    assert Ps == sorted(Ps) and Ps[0] < Ps[-1]
+    for Q, P in zip(Qs, Ps):
+        assert P % PIECE_WARPS == 0
+        assert Q * P >= WARPS_PER_SM * 132
+        assert Q * (P - PIECE_WARPS) < WARPS_PER_SM * 132

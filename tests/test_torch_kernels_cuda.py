@@ -13,7 +13,8 @@ import torch
 from torch_util import (ONT_ADP5, QC_JSON, SAMPLEQC_TABLES, adapter_codes,
                         adapter_windows, compare_qc_json,
                         ext_edge_pairs, ext_strip_pairs,
-                        ont_sampleqc_reads, pb_sampleqc_reads)
+                        ont_sampleqc_reads, pb_sampleqc_reads,
+                        segment_rows)
 
 from longqc_tpu_torch import tracing
 from longqc_tpu_torch.engine import device_index as di
@@ -23,8 +24,9 @@ from longqc_tpu_torch.ops import extend as ext
 from longqc_tpu_torch.ops import ringprop as rp
 from longqc_tpu_torch.ops import sketch_cuda as skc
 from longqc_tpu_torch.ops.chain import (chain_dp_batch, gap_penalty_table,
-                                        window_depths)
-from longqc_tpu_torch.ops.chain_cuda import chain_dp_fill
+                                        piece_starts, window_depths)
+from longqc_tpu_torch.ops.chain_cuda import (chain_dp_fill, count_pieces,
+                                             pieces_per_row)
 
 pytestmark = pytest.mark.cuda
 
@@ -146,6 +148,91 @@ def test_chain_and_ringprop_kernels_match_plain(dev, dense, tables):
                       rp.INF32).int()
     assert torch.equal(rp.minrank_pass(p, own, J=A),
                        rp.minrank_pass_plain(p, own, J=A))
+
+
+def _piece_rows(rng, Q, A, P):
+    """Multi-segment rows by row mod 5: a long segment (longer than a
+    piece) and a repeat-dense one; n == A; segments of 1.5-2.5 nominal
+    pieces, so they straddle the nominal cuts; fewer anchors than P;
+    none. One row: n == A with a long and a dense segment."""
+    step = -(-A // P)
+    parts = []
+    for r in range(Q):
+        mode = 1 if Q == 1 else r % 5
+        if mode == 0:
+            rows = segment_rows(rng, 1, A, A // 32,
+                                long_lens=(max(3 * step, 600),),
+                                dense_len=400)
+        elif mode == 1:
+            rows = segment_rows(rng, 1, A, A // 32,
+                                long_lens=(max(3 * step, 600),),
+                                dense_len=400, fill=True)
+        elif mode == 2:
+            lens = rng.randint(step + step // 2, 2 * step + step // 2,
+                               A // step + 1)
+            rows = segment_rows(rng, 1, A, 0, long_lens=lens, fill=True)
+        else:
+            rows = segment_rows(rng, 1, A, rng.randint(1, 6) if mode == 3
+                                else 0)
+            rows[3][:] = min(int(rows[3][0]), P - 1)
+        parts.append(rows)
+    return [np.concatenate([pt[i] for pt in parts]) for i in range(4)]
+
+
+@pytest.mark.parametrize("tables", ["one", "per_row"])
+@pytest.mark.parametrize("Q,A", [(1, 32768), (16, 16384), (128, 4096)])
+def test_chain_kernel_pieces_match_plain(dev, Q, A, tables):
+    """B2's pieces (runs of whole (strand, target) segments, one warp
+    each, P a row from Q and the card's SMs) against the plain fill on
+    multi-segment rows, and the kernel's counters against the pieces of
+    ops/chain.piece_starts."""
+    P = pieces_per_row(Q, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    rng = np.random.RandomState(Q + A + (tables == "per_row"))
+    axh, axl, aq, n = (torch.from_numpy(a).to(dev)
+                       for a in _piece_rows(rng, Q, A, P))
+    span = torch.full((Q, A), 12, dtype=torch.int32, device=dev)
+    avg = [12] if tables == "one" else [12 + r / 7 for r in range(Q)]
+    pen = torch.from_numpy(np.stack([
+        gap_penalty_table(np.float32(a), 500) for a in avg])).to(dev)
+    with count_pieces() as pc:
+        ko = chain_dp_fill(axh, axl, aq, span, n, pen)
+    po = chain_dp_batch(axh, axl, aq, span, n, pen)
+    for a, b in zip(ko, po):
+        assert torch.equal(a, b)
+    st = piece_starts(axh, n, P)
+    ln = (st[:, 1:] - st[:, :-1]).cpu()
+    got = list(pc.sums.values())
+    assert len(got) == 1
+    assert got[0].tolist() == [int((ln > 0).sum()), int(n.max()),
+                               int(ln.max())]
+    assert int((ln > 0).sum()) > Q
+    assert int(n.max()) == A and int(ln.max()) < A
+    if Q > 1:
+        # the straddling rows: their nominal cuts inside segments
+        x = axh[2].cpu().numpy()
+        heads = set((np.flatnonzero(x[1:] != x[:-1]) + 1).tolist())
+        cuts = np.arange(1, P) * -(-A // P)
+        assert sum(int(c) not in heads for c in cuts) >= 0.9 * (P - 1)
+        assert int(n[3]) < P and int(n[4]) == 0
+
+
+def test_chain_kernel_one_piece_a_single_segment_row(dev):
+    """Rows of one segment each (x_hi all 0): one non-empty piece a
+    row."""
+    Q, A = 128, 1024
+    axl, aq, n = (t.to(dev) for t in _anchor_rows(
+        np.random.RandomState(3), Q, A, False))
+    axh = torch.zeros((Q, A), dtype=torch.int32, device=dev)
+    span = torch.full((Q, A), 12, dtype=torch.int32, device=dev)
+    pen = torch.from_numpy(gap_penalty_table(np.float32(12), 500)[None]).to(
+        dev)
+    with count_pieces() as pc:
+        ko = chain_dp_fill(axh, axl, aq, span, n, pen)
+    for a, b in zip(ko, chain_dp_batch(axh, axl, aq, span, n, pen)):
+        assert torch.equal(a, b)
+    assert next(iter(pc.sums.values())).tolist() == \
+        [Q, int(n.max()), int(n.max())]
 
 
 def _hard_forest_rows(case, rng, Q, A):

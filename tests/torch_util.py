@@ -35,6 +35,57 @@ def np_(t):
     return t.cpu().numpy()
 
 
+def segment_rows(rng, Q, A, n_seg, long_lens=(), dense_len=0, fill=False):
+    """B2 input rows of many (strand, target) segments: numpy int32
+    ax_hi, ax_lo, aq (Q, A) and n (Q,), each row sorted by (ax_hi,
+    ax_lo). A row holds n_seg short segments (1-20 anchors, one in five
+    20-200), one of each length in long_lens and, with dense_len, one
+    repeat-dense segment (positions in an 800 bp band, scattered query
+    positions: deep windows and max_skip cuts), in random order, with
+    trailing segments dropped past A; fill: the last segment grown or
+    cut so that n == A."""
+    axh = np.zeros((Q, A), np.int32)
+    axl = np.zeros((Q, A), np.int32)
+    aq = np.zeros((Q, A), np.int32)
+    n = np.zeros(Q, np.int32)
+    for r in range(Q):
+        lens = [int(rng.randint(20, 200)) if rng.rand() < 0.2 else
+                int(rng.randint(1, 21)) for _ in range(n_seg)]
+        lens += [int(x) for x in long_lens]
+        kinds = [0] * len(lens)
+        if dense_len:
+            lens.append(int(dense_len))
+            kinds.append(1)
+        order = rng.permutation(len(lens))
+        lens = [lens[i] for i in order]
+        kinds = [kinds[i] for i in order]
+        while sum(lens) > A:
+            lens.pop()
+            kinds.pop()
+        if fill and lens:
+            lens[-1] += A - sum(lens)
+        keys = np.sort(rng.choice(1 << 20, len(lens), replace=False))
+        keys = keys | (rng.rand(len(lens)) < 0.5).astype(np.int64) << 24
+        keys = np.sort(keys)
+        off = 0
+        for key, L, dense in zip(keys, lens, kinds):
+            if dense:
+                pos = np.sort(rng.randint(0, 800, L))
+                q = rng.randint(0, 20000, L)
+                near = rng.rand(L) < 0.3
+                q[near] = pos[near] + rng.randint(-30, 30, int(near.sum()))
+            else:
+                pos = np.sort(rng.randint(0, max(400, 40 * L), L))
+                q = pos + rng.randint(0, 5000) + rng.randint(0, 3, L) * \
+                    rng.randint(1, 400) + rng.randint(-40, 40, L)
+            axh[r, off:off + L] = key
+            axl[r, off:off + L] = pos
+            aq[r, off:off + L] = np.clip(q, 0, None)
+            off += L
+        n[r] = off
+    return axh, axl, aq, n
+
+
 def rand_reads(rng, n, lo, hi, with_n=True):
     """[name, seq, ""] reads of lo..hi random bases, half of them (with
     with_n) carrying a short N run."""
