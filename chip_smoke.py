@@ -134,11 +134,11 @@ prints the final result line):
      phase 7's control-derived reads: the device engine rejects HPC with
      k > 15, so the batched chainer runs, B2 (and no other kernel)
      launched, every row equal to the host spec's; seconds, B2 launches
-     and host-chained rows printed; then LONGQC_OVERLAP_ENGINE=v1 `mmcov`
-     at phase 5's settings on the 2,000 targets and 200 queries: the
-     batched chainer on a configuration the device engine takes, B2 (and
-     no other kernel) launched, every row equal to the device engine's;
-     the variable restored after
+     and host-chained rows printed; then the batched-chainer path
+     called directly (overlap_host.overlap_run with DeviceChainer as its
+     chain_many) at phase 5's settings on the 2,000 targets and 200
+     queries, a configuration the device engine takes: B2 (and no other
+     kernel) launched, every row equal to the device engine's
  13. `runqc sequel` (20,000 ZMWs of 1-4 subreads split by adapters,
      low-quality and control scraps; BAM records of 12 bp placeholder
      sequences, the QC reading names and tags alone) and `runqc rs2`
@@ -148,14 +148,8 @@ prints the final result line):
      Sequel control throughput equal what the writer planted; `runqc
      minion` where h5py is installed, else one line saying it did not
      run
- 14. the multi-device path and the part pipeline, at phase 5's settings:
-     14a. phase 5's targets and queries through overlap_run_device2 with
-     the query lanes over ["cuda:0"] * 2 (64 lanes each): all 5,000 rows
-     equal to phase 5's one-device rows, the index copied once, no
-     host-only part, B2 launched once per shard and step; the wall, the
-     one-device engine's wall through the same call, step calls,
-     host-fixed rows and peak device memory printed;
-     14b. `mmcov -I 30M` through cli.main on phase 5's targets (3
+ 14. the part pipeline, at phase 5's settings: `mmcov -I 30M` through
+     cli.main on phase 5's targets (3
      parts, each read and packed on the engine's side thread while the
      previous one steps): 32 random rows equal to the host spec at -I
      30M; peak device memory at most 1.1 x phase 5's (one device build
@@ -174,7 +168,7 @@ prints the final result line):
 The side processes use the CPU only and are stopped when the script
 stops. Kernel launch counts are reset just before each path (phase 4's three
 runs, phases 5, 6, 7, 8, 9, 10a, 10b, 11, phase 12's two batched-chainer
-runs, 14a, 14b, 15) and read just after it. Each
+runs, 14, 15) and read just after it. Each
 kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its integer operations
 (counted from this run's data) over 67 T/s, the card's 32-bit rate
@@ -1017,7 +1011,7 @@ def kernel_device_ms(argv, kernels):
 def realistic_mmcov(dev, workdir, run):
     """One all-vs-sample run (ONT_RUN or HIFI_RUN) through cli.main.
     Returns (launches, device ms per kernel, B3 / B4 rungs and bound, the
-    target reads, the rows, the run's peak device memory)."""
+    target reads, the run's peak device memory)."""
     import numpy as np
     import torch
     from util_synth import make_genome_fast, sample_reads_fast
@@ -1130,7 +1124,7 @@ def realistic_mmcov(dev, workdir, run):
     log("%s device time per kernel (torch.profiler, one more run, "
         "%.1f s): %s" % (phase, time.time() - t, json.dumps(
             {key: round(v, 3) for key, v in sorted(dev_ms.items())})))
-    return launches, dev_ms, (rungs, path_bound), targets, rows, peak_mem
+    return launches, dev_ms, (rungs, path_bound), targets, peak_mem
 
 
 def range_rerun(dev, cfg, targets, queries, rows, stats,
@@ -2115,10 +2109,10 @@ def mmcov_db_z_chainer(dev, workdir, targets, queries7):
     -H -k 17 -w 10 -c 1 -l 0 --filter` (the device engine rejects HPC
     with k > 15) against the Sequel control on the queries plus
     N_CHAINER_CONTROL of phase 7's control-derived reads: the batched
-    chainer with B2, every row equal to the host spec's; then, with
-    LONGQC_OVERLAP_ENGINE=v1, `mmcov` at phase 5's settings on the same
-    targets and queries: the batched chainer, B2 alone, rows equal to the
-    device engine's. Returns the launch counts of the two batched-chainer
+    chainer with B2, every row equal to the host spec's; then the
+    batched-chainer path called directly at phase 5's settings on the
+    same targets and queries: B2 alone, rows equal to the device
+    engine's. Returns the launch counts of the two batched-chainer
     runs."""
     import numpy as np
     import torch
@@ -2126,6 +2120,7 @@ def mmcov_db_z_chainer(dev, workdir, targets, queries7):
         OverlapConfig, parse_num
     from longqc_tpu_torch.engine import overlap_host as oh
     from longqc_tpu_torch.engine.device_overlap import DeviceOverlapEngine
+    from longqc_tpu_torch.engine.overlap import DeviceChainer
     from longqc_tpu_torch.io.fastx import iter_fastx
     from longqc_tpu_torch.ops import _ext
 
@@ -2167,7 +2162,7 @@ def mmcov_db_z_chainer(dev, workdir, targets, queries7):
     # the device engine's m_cnts, summed over every query
     m_sum = 0
     for g in eng.groups:
-        mc, n_exp = g.pull("m_cnts"), g.n_exp.cpu().numpy()
+        mc, n_exp = g.m_cnts.cpu().numpy(), g.n_exp.cpu().numpy()
         for r, qi in enumerate(g.qids):
             if qi in eng.host_state:
                 m_sum += int(eng.host_state[qi].m_cnts.sum())
@@ -2239,42 +2234,33 @@ def mmcov_db_z_chainer(dev, workdir, targets, queries7):
                              "the host spec (first: %s)"
                              % (phase, len(bad), len(want), bad[:1]))
 
-    # LONGQC_OVERLAP_ENGINE=v1: the batched chainer on a configuration the
-    # device engine takes
-    stats_path = os.path.join(workdir, "v1_stats.json")
-    prev = os.environ.get("LONGQC_OVERLAP_ENGINE")
-    os.environ["LONGQC_OVERLAP_ENGINE"] = "v1"
-    try:
-        _ext.reset_launches()
-        out, _, t_v1 = run_cli(base + ["--stats", stats_path, tpath, qpath])
-        launches_v1 = dict(_ext.LAUNCHES)
-    finally:
-        if prev is None:
-            del os.environ["LONGQC_OVERLAP_ENGINE"]
-        else:
-            os.environ["LONGQC_OVERLAP_ENGINE"] = prev
-    with open(stats_path) as f:
-        stats = json.load(f)
-    rows_v1 = out.rstrip("\n").split("\n")
-    log("LONGQC_OVERLAP_ENGINE=v1 %s db_targets.fq db_queries.fq"
-        % " ".join(base))
-    log("%s v1: %.2f s (device engine %.2f s), engine %s, B2 launches %s, "
-        "B2 calls %d, device rows %d, host-chained rows %d; %d rows"
-        % (phase, t_v1, t_dev, stats["engine"], launches_v1,
-           stats["b2_calls"], stats["device_rows"],
-           stats["host_fallback_rows"], len(rows_v1)))
-    if stats["engine"] != "batched_chainer" or \
-            set(launches_v1) != {"chain"} or \
-            launches_v1["chain"] != stats["b2_calls"]:
-        raise AssertionError("%s: the v1 run must take the batched chainer "
-                             "and launch B2 (and nothing else)" % phase)
-    if rows_v1 != rows_dev:
-        bad = [i for i, (a, b) in enumerate(zip(rows_v1, rows_dev))
+    # the batched-chainer path on a configuration the device engine takes
+    chainer = DeviceChainer(dev)
+    _ext.reset_launches()
+    torch.cuda.synchronize()
+    t = time.time()
+    rows_plain = oh.overlap_run(iter(tg), qs, cfg, device=dev,
+                                chain_many=chainer)
+    torch.cuda.synchronize()
+    t_plain = time.time() - t
+    launches_plain = dict(_ext.LAUNCHES)
+    log("%s batched chainer at phase 5's settings: %.2f s (device engine "
+        "%.2f s), B2 launches %s, B2 calls %d, device rows %d, host-chained "
+        "rows %d; %d rows" % (phase, t_plain, t_dev, launches_plain,
+                              chainer.n_calls, chainer.n_device,
+                              chainer.n_host_fallback, len(rows_plain)))
+    if set(launches_plain) != {"chain"} or \
+            launches_plain["chain"] != chainer.n_calls:
+        raise AssertionError("%s: the batched chainer at phase 5's "
+                             "settings must launch B2 (and nothing else)"
+                             % phase)
+    if rows_plain != rows_dev:
+        bad = [i for i, (a, b) in enumerate(zip(rows_plain, rows_dev))
                if a != b]
-        raise AssertionError("%s: %d of %d v1 rows differ from the device "
-                             "engine's (first: %s)"
+        raise AssertionError("%s: %d of %d batched-chainer rows differ "
+                             "from the device engine's (first: %s)"
                              % (phase, len(bad), len(rows_dev), bad[:1]))
-    return launches, launches_v1
+    return launches, launches_plain
 
 
 # ---------------------------------------------------------------------------
@@ -2470,11 +2456,10 @@ def runqc_runs(workdir):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the query lanes over two shards; the part pipeline
+# phase 14: the part pipeline
 
-N_SHARD_LANES = 64      # lanes per shard of 14a: 2 x 64 = one group of 128
-PIPELINE_PARTS = "30M"  # 14b's -I: phase 5's 90 Mbp of targets in 3 parts
-PEAK_SLACK = 1.10       # 14b's peak memory against phase 5's
+PIPELINE_PARTS = "30M"  # 14's -I: phase 5's 90 Mbp of targets in 3 parts
+PEAK_SLACK = 1.10       # 14's peak memory against phase 5's
 
 
 def ont_cfg(batch_size):
@@ -2492,71 +2477,8 @@ def ont_cfg(batch_size):
         flt=FltOpt(min_ovlp=0, min_coverage=3))
 
 
-def two_shard_run(dev, targets, rows5):
-    """Phase 14a: phase 5's targets and queries at its settings through
-    overlap_run_device2 with the query lanes over [dev] * 2
-    (N_SHARD_LANES each): every row must equal phase 5's one-device rows,
-    the index copied once, B2 launched once per shard and step; then the
-    one-device engine through the same call, for its wall beside it.
-    Returns the two-shard run's launches."""
-    import torch
-    from longqc_tpu_torch.engine.device_overlap import overlap_run_device2
-    from longqc_tpu_torch.ops import _ext
-
-    phase = "phase 14a"
-    queries = targets[:N_QUERIES]
-    cfg = ont_cfg("4G")
-    runs = {}
-    for name, kw in (("two shards", dict(devices=[str(dev)] * 2,
-                                         lanes_per_shard=N_SHARD_LANES)),
-                     ("one device", {})):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _ext.reset_launches()
-        stats = {}
-        t = time.time()
-        rows = overlap_run_device2(iter(targets), queries, cfg, device=dev,
-                                   stats=stats, **kw)
-        torch.cuda.synchronize()
-        runs[name] = (time.time() - t, stats, dict(_ext.LAUNCHES),
-                      torch.cuda.max_memory_allocated(), rows)
-    wall, st, launches, peak, rows = runs["two shards"]
-    wall1, st1, _, peak1, rows1 = runs["one device"]
-    bad = sum(1 for a, b in zip(rows, rows5) if a != b)
-    log("%s: lanes over %s, %d each: wall %.2f s (one device through the "
-        "same call %.2f s); phase_s %s (one device %s); "
-        "step calls %d, B2 launches %d, host-fixed rows %d, host-only parts "
-        "%d, index copies %d; max_memory_allocated %d bytes (%.2f GB; one "
-        "device %.2f GB); kernel launches %s; %d of %d rows differ from "
-        "phase 5's" % (
-            phase, st["shards"], N_SHARD_LANES, wall, wall1,
-            json.dumps({k: round(v, 3) for k, v in st["phase_s"].items()}),
-            json.dumps({k: round(v, 3) for k, v in st1["phase_s"].items()}),
-            st["device_calls"], launches.get("chain", 0),
-            st["host_fixed_rows"], st["host_only_parts"],
-            st["index_copies"], peak, peak / 1e9, peak1 / 1e9, launches, bad,
-            len(rows5)))
-    if bad or len(rows) != len(rows5) or rows1 != rows5:
-        raise AssertionError("%s: the two-shard run changed %d of %d rows"
-                             % (phase, bad, len(rows5)))
-    if st["host_only_parts"] or st["index_copies"] != 1 or \
-            st["shards"] != [str(dev)] * 2:
-        raise AssertionError("%s: one part, copied once, expected: %s"
-                             % (phase, st))
-    for name in ONT_RUN["kernels"]:
-        if not launches.get(name):
-            raise AssertionError("%s: kernel %s was not launched"
-                                 % (phase, name))
-    if launches["chain"] != 2 * st["device_calls"]:
-        raise AssertionError("%s: %d step calls but %d B2 launches (one "
-                             "per shard and step)" % (
-                                 phase, st["device_calls"],
-                                 launches["chain"]))
-    return launches
-
-
 def part_pipeline_run(dev, workdir, targets, peak5):
-    """Phase 14b: `mmcov -I 30M` through cli.main on phase 5's targets and
+    """Phase 14: `mmcov -I 30M` through cli.main on phase 5's targets and
     queries: 3 parts, each read and packed on the side thread while the
     previous one steps; 32 random rows against the host spec at the same
     -I; the peak device memory at most PEAK_SLACK x phase 5's (one device
@@ -2565,7 +2487,7 @@ def part_pipeline_run(dev, workdir, targets, peak5):
     from longqc_tpu_torch.engine import overlap_host as oh
     from longqc_tpu_torch.ops import _ext
 
-    phase = "phase 14b"
+    phase = "phase 14"
     run = ONT_RUN
     stats_path = os.path.join(workdir, "pipeline_stats.json")
     argv = ["mmcov", "-k", str(run["k"]), "-w", str(run["w"]), "-p",
@@ -2876,7 +2798,7 @@ def run_phases(dev, workdir, sides, t_all):
     # --- phase 5: realistic mmcov run; phase 6: B5; phase 7: HPC filter;
     # phase 8: the pb-hifi fast preset
     t = time.time()
-    launches, dev_ms, rungs5, targets5, rows5, peak5 = realistic_mmcov(
+    launches, dev_ms, rungs5, targets5, peak5 = realistic_mmcov(
         dev, workdir, ONT_RUN)
     log("phase 5 %.1f s" % (time.time() - t))
     t = time.time()
@@ -2891,7 +2813,7 @@ def run_phases(dev, workdir, sides, t_all):
     hpc_launches, rungs7, queries7 = hpc_filter_run(dev, workdir)
     log("phase 7 %.1f s" % (time.time() - t))
     t = time.time()
-    launches8, dev_ms8, rungs8, _, _, _ = realistic_mmcov(dev, workdir,
+    launches8, dev_ms8, rungs8, _, _ = realistic_mmcov(dev, workdir,
                                                           HIFI_RUN)
     log("phase 8 %.1f s" % (time.time() - t))
     t = time.time()
@@ -2918,20 +2840,17 @@ def run_phases(dev, workdir, sides, t_all):
     launches11 = sampleqc_db(dev, workdir, queries7, missing)
     log("phase 11 %.1f s" % (time.time() - t))
     t = time.time()
-    launches12, launches12_v1 = mmcov_db_z_chainer(dev, workdir,
-                                                   targets12, queries7)
+    launches12, launches12_plain = mmcov_db_z_chainer(dev, workdir,
+                                                      targets12, queries7)
     log("phase 12 %.1f s" % (time.time() - t))
     t = time.time()
     runqc_runs(workdir)
     log("phase 13 %.1f s" % (time.time() - t))
-    # phase 14: the lanes over two shards, the part pipeline
+    # phase 14: the part pipeline
     t = time.time()
-    launches14a = two_shard_run(dev, targets5, rows5)
-    log("phase 14a %.1f s" % (time.time() - t))
-    t = time.time()
-    launches14b = part_pipeline_run(dev, workdir, targets5, peak5)
+    launches14 = part_pipeline_run(dev, workdir, targets5, peak5)
     del targets5
-    log("phase 14b %.1f s" % (time.time() - t))
+    log("phase 14 %.1f s" % (time.time() - t))
     check_adapter_recheck(workdir, recheck10a)
     # phase 15: rows past the top anchor rung; then phase 3 at the wide
     # rungs' shapes against the side processes' plain versions
@@ -2981,15 +2900,11 @@ def run_phases(dev, workdir, sides, t_all):
                            ("phase10b", launches10b),
                            ("phase11", launches11),
                            ("batched_chainer", launches12),
-                           ("v1_chainer", launches12_v1),
-                           ("phase14a", launches14a),
-                           ("phase14b", launches14b),
+                           ("plain_chainer", launches12_plain),
+                           ("phase14", launches14),
                            ("phase15", launches15)):
             if name in l10:
                 entry["launches_" + phase] = l10[name]
-        if name in launches14a:
-            entry["launches_phase14"] = launches14a[name] + \
-                launches14b.get(name, 0)
         if name in HPC_KERNELS:
             entry["launches_hpc_filter"] = hpc_launches[name]
         for phase, (rungs, path_bound) in (("phase5", rungs5),

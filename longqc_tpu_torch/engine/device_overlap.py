@@ -41,15 +41,9 @@ intermediates shape for shape. PyTorch runs eagerly, so the TPU-only
 machinery (ahead-of-time compiles, asynchronous pulls, the warm-up
 thread) has no counterpart.
 
-Multi-device (the JAX engine's mesh path): given a device list, a
-group's lanes split into one shard per device. The group is sketched,
-counted and given its rung whole on the first device; each shard steps
-on its own device against that device's copy of the part index (one
-copy per part and distinct device), and its accumulators stay there
-until the finalize. Every shard's step is launched before the first
-pull, so the cards run together. The part loop is pipelined as in the
-JAX engine: part N+1 is read and packed on a side thread while part N's
-groups step (DeviceOverlapEngine.run).
+The part loop is pipelined as in the JAX engine: part N+1 is read and
+packed on a side thread while part N's groups step
+(DeviceOverlapEngine.run).
 
 Behavioral citations as in overlap_host.py: index.c:69-144,
 lqmap.c:140-205, chain.c:22-157, esterr.c:72-140, lqmap.c:25-100,
@@ -58,7 +52,6 @@ minimap2-coverage.c:545-617.
 
 import concurrent.futures as cf
 import copy
-import os
 import threading
 from bisect import bisect_left
 from collections import defaultdict
@@ -698,74 +691,23 @@ def _len_bucket(n):
     return b
 
 
-class _Shard:
-    """Lanes [lo, hi) of a query group on one device: their step inputs
-    and their accumulators (lam, lam2, avgk_set, avgk_val, m_cnts), which
-    stay on that device from staging to the finalize; no collective runs
-    in between (per-read-owned state, minimap2-coverage.c:434-444). One
-    shard over the whole group on the group's device holds views of the
-    group's tensors, so the one-device run copies nothing."""
+class _Group:
+    """A batch of query lanes sharing one length bucket, sketched and
+    compacted on `device`: their step inputs and their accumulators
+    (lam, lam2, avgk_set, avgk_val, m_cnts), which stay on the device
+    from staging to the finalize (per-read-owned state,
+    minimap2-coverage.c:434-444)."""
 
     INPUTS = ("qps", "qcnt", "n_slots", "n_exp", "qlen", "qvalid", "qspan")
     STATE = ("lam", "lam2", "avgk_set", "avgk_val", "m_cnts")
 
-    def __init__(self, g, lo, hi, device):
-        self.lo, self.hi, self.device = lo, hi, device
-        self.idx = None
-        self.qps, self.qcnt, self.n_slots, self.n_exp, self.qlen, \
-            self.qvalid = (self.put(t) for t in (g.qps, g.qcnt, g.n_slots,
-                                                 g.n_exp, g.qlen, g.qvalid))
-        self.qspan = self.put(g.qspan) if g.hpc else None
-        L = hi - lo
-        self.lam = torch.zeros(L, dtype=_I64, device=device)
-        self.lam2 = torch.zeros(L, dtype=_I64, device=device)
-        self.avgk_set = torch.zeros(L, dtype=_I32, device=device)
-        # HPC: the kept-minimizer mean span (f32) of each processed row
-        self.avgk_val = torch.zeros(L, dtype=torch.float32,
-                                    device=device) if g.hpc else None
-        self.m_cnts = torch.zeros((L, g.M2), dtype=_I32, device=device)
-
-    def put(self, a):
-        """This shard's lanes of a group-wide tensor or numpy array, on
-        the shard's device (a view where they already lie there; on a
-        shard of some of its lanes, `take`, those lanes gathered)."""
-        if isinstance(a, np.ndarray):
-            a = torch.from_numpy(a)
-        a = a[self.lo:self.hi].to(self.device)
-        return a if self.idx is None else a.index_select(0, self.idx)
-
-    def take(self, lanes):
-        """A shard of `lanes` (indices into this shard's lanes) alone:
-        their inputs and accumulators gathered; give_back scatters its
-        accumulators back."""
-        sub = copy.copy(self)
-        sub.idx = torch.tensor(lanes, dtype=_I64, device=self.device)
-        for name in self.INPUTS + self.STATE:
-            t = getattr(self, name)
-            if t is not None:
-                setattr(sub, name, t.index_select(0, sub.idx))
-        return sub
-
-    def give_back(self, sub):
-        """Scatter the accumulators of `sub` (a take of this shard) back
-        to their lanes."""
-        for name in self.STATE:
-            t = getattr(self, name)
-            if t is not None:
-                t.index_copy_(0, sub.idx, getattr(sub, name))
-
-
-class _Group:
-    """A batch of query lanes sharing one length bucket, sketched and
-    compacted on `device`, its lanes split into one shard per entry of
-    `devices` (lanes / len(devices) each)."""
-
     def __init__(self, qids, reads, k, w, device, lanes=GROUP_Q,
-                 hpc=False, devices=None):
+                 hpc=False):
         self.lanes = lanes
         self.device = device
         self.qids = qids                     # lane -> global query index
         self.hpc = hpc
+        self.idx = None                      # a take's lanes (take)
         self.blen = _len_bucket(max(len(reads[i][1]) for i in qids))
         self.M = self.blen // 2
         self.M2 = self.blen
@@ -809,17 +751,41 @@ class _Group:
         # overflow — adversarial periodic reads)
         self.perm_host = ovf.cpu().numpy()
         self.ns_max = int(ns_max)
-        devices = devices or [device]
-        L = lanes // len(devices)
-        self.shards = [_Shard(self, s * L, (s + 1) * L, dev)
-                       for s, dev in enumerate(devices)]
+        self.lam = torch.zeros(lanes, dtype=_I64, device=device)
+        self.lam2 = torch.zeros(lanes, dtype=_I64, device=device)
+        self.avgk_set = torch.zeros(lanes, dtype=_I32, device=device)
+        # HPC: the kept-minimizer mean span (f32) of each processed row
+        self.avgk_val = torch.zeros(lanes, dtype=torch.float32,
+                                    device=device) if hpc else None
+        self.m_cnts = torch.zeros((lanes, self.M2), dtype=_I32,
+                                  device=device)
         self._host_sketch = None
 
-    def pull(self, name):
-        """A per-lane accumulator of every shard, on the host, in lane
-        order."""
-        return np.concatenate([getattr(sh, name).cpu().numpy()
-                               for sh in self.shards])
+    def put(self, a):
+        """A per-lane tensor or numpy array of the group on the group's
+        device (on a take, its lanes gathered)."""
+        a = torch.as_tensor(a, device=self.device)
+        return a if self.idx is None else a.index_select(0, self.idx)
+
+    def take(self, lanes):
+        """The group's `lanes` (lane indices) alone: their inputs and
+        accumulators gathered; give_back scatters the accumulators
+        back."""
+        sub = copy.copy(self)
+        sub.idx = torch.tensor(lanes, dtype=_I64, device=self.device)
+        for name in self.INPUTS + self.STATE:
+            t = getattr(self, name)
+            if t is not None:
+                setattr(sub, name, t.index_select(0, sub.idx))
+        return sub
+
+    def give_back(self, sub):
+        """Scatter the accumulators of `sub` (a take of this group) back
+        to their lanes."""
+        for name in self.STATE:
+            t = getattr(self, name)
+            if t is not None:
+                t.index_copy_(0, sub.idx, getattr(sub, name))
 
     def count_crop(self):
         """Search-width rung for the count pass: smallest of
@@ -874,8 +840,7 @@ class _PartIndex:
     packed tiles; numpy only, so the engine runs it on its side thread);
     build() is the device step (B1, the sorts, the merge), which the
     engine runs on the main thread once the previous part's index is
-    released. `copies` maps each device of the run to the index arrays
-    the step reads there (engine.DeviceOverlapEngine._replicate)."""
+    released."""
 
     def __init__(self, part, k, w, mid_occ_fixed, mid_occ_frac, ladder,
                  n_idx_sizes, device, hpc=False, range_max=di.RANGE_MAX,
@@ -904,7 +869,6 @@ class _PartIndex:
         self.device = device
         self.ih = self.irid = self.ips = self.mid_occ = None
         self.rid_rank = self.seq_lens = None
-        self.copies = {}
         self.n_ranges = 0
         self.tiles = None
         if not hpc:
@@ -951,13 +915,6 @@ class _PartIndex:
                            "the host path")
             self.host_only = True
 
-    def drop_device(self):
-        """Release the device index (the part is computed by the host
-        spec alone, with the index's mid_occ)."""
-        self.host_only = True
-        self.ih = self.irid = self.ips = None
-        self.copies = {}
-
     def host_index(self):
         """Exact host MinimizerIndex for this part (built lazily, only
         when a flagged row needs the host fallback)."""
@@ -996,17 +953,10 @@ def _wide_batches(rows, nq, rungs, budget):
     return out
 
 
-def _a_ladder(a_ladder, on_gpu):
-    """The anchor rungs: a_ladder, else LONGQC_A_LADDER (a comma list, as
-    the JAX engine reads it), else A_LADDER on the card and A_BUCKETS on
-    the CPU."""
-    if a_ladder is None:
-        env = os.environ.get("LONGQC_A_LADDER")
-        if env:
-            a_ladder = tuple(int(x) for x in env.split(","))
-        else:
-            a_ladder = A_LADDER if on_gpu else A_BUCKETS
-    return tuple(a_ladder)
+def anchor_rungs(device):
+    """The anchor rungs of a run on `device`: A_LADDER on the card,
+    A_BUCKETS on the CPU (the kernels' plain twins)."""
+    return A_LADDER if device.type == "cuda" else A_BUCKETS
 
 
 class DeviceOverlapEngine:
@@ -1014,32 +964,21 @@ class DeviceOverlapEngine:
     Produces rows bit-identical to overlap_host.overlap_run."""
 
     def __init__(self, cfg: OverlapConfig, query_reads, device="cuda",
-                 devices=None, lanes_per_shard=GROUP_Q, a_ladder=None):
+                 lanes=GROUP_Q, a_ladder=None):
         """device: the torch device of every tensor of the run. On CUDA
         the anchor rungs are A_LADDER and the tile / index widths the
         production ladders; on the CPU (plain kernel twins, tests) the
         coarser A_BUCKETS and the small ladders (the part the JAX
         engine's `geometry=` chooses).
 
-        devices: the device list the query lanes are sharded over (the
-        JAX engine's `mesh`; parallel.mesh.make_mesh gives one), in place
-        of `device`: a group is sketched, counted and given its anchor
-        rung whole on devices[0], then each shard of lanes_per_shard
-        lanes steps on its own device, where its accumulators stay; the
-        part index is copied once per part to each distinct device.
-        Entries may repeat (["cuda:0"] * 2: two shards, one copy). None:
-        one shard on `device`. A group holds lanes_per_shard x
-        len(devices) lanes. HPC runs on one device only, and parts built
-        by hash range are computed by the host spec under a device list,
-        as in the JAX engine.
+        lanes: the query lanes of a group (GROUP_Q; fewer in tests).
 
-        a_ladder: the anchor rungs (default: LONGQC_A_LADDER, else by
-        device type, _a_ladder). A row past its top steps in a
-        sub-batch of fewer lanes at a wider rung (`wide_ladder`, in the
-        footprint of the group's lanes at the top rung), up to
-        `row_anchors_max` anchors (ROW_ANCHORS_MAX by default on the
-        card); past that, and under a device list, it is computed by
-        the host spec. The JAX engine's `interpret=`
+        a_ladder: the anchor rungs (default: by device type,
+        anchor_rungs). A row past its top steps in a sub-batch of fewer
+        lanes at a wider rung (`wide_ladder`, in the footprint of the
+        group's lanes at the top rung), up to `row_anchors_max` anchors
+        (ROW_ANCHORS_MAX by default on the card); past that, it is
+        computed by the host spec. The JAX engine's `interpret=`
         (Pallas only) has no counterpart."""
         self.hpc = cfg.index.is_hpc
         if self.hpc and 2 * cfg.index.k > 30:
@@ -1047,31 +986,19 @@ class DeviceOverlapEngine:
             # lanes (k <= 15); every reference HPC surface (spike-in
             # filter, pb-hifi main run) uses k = 15
             raise NotImplementedError("HPC device engine requires k <= 15")
-        if self.hpc and devices is not None:
-            raise NotImplementedError(
-                "HPC sketch is single-device (filter runs are small)")
-        if devices is None:
-            self.devices = [require_device(device)]
-        else:
-            self.devices = [require_device(d) for d in devices]
-            if not self.devices or \
-                    len({d.type for d in self.devices}) != 1:
-                raise ValueError("devices: a non-empty list of devices of "
-                                 "one type, got %r" % (devices,))
-        self.sharded = devices is not None
-        self.device = self.devices[0]
+        self.device = require_device(device)
         on_gpu = self.device.type == "cuda"
         self.cfg = cfg
         self.k, self.w = cfg.index.k, cfg.index.w
         # HPC rows get their own tables per step (avg_qspan is
-        # data-dependent); plain mode has one for every row, on each
-        # device of the run
-        self.pen_tab = {}
+        # data-dependent); plain mode has one for every row
+        self.pen_tab = None
         if not self.hpc:
             pen = torch.from_numpy(
                 gap_penalty_table(np.float32(self.k), cfg.map.bw)[None, :])
-            self.pen_tab = {d: pen.to(d) for d in self.devices}
-        self.a_ladder = _a_ladder(a_ladder, on_gpu)
+            self.pen_tab = pen.to(self.device)
+        self.a_ladder = (anchor_rungs(self.device) if a_ladder is None
+                         else tuple(a_ladder))
         if on_gpu:
             self.tile_ladder = di.TILE_LADDER
             self.n_idx_sizes = di.N_IDX_SIZES
@@ -1082,11 +1009,9 @@ class DeviceOverlapEngine:
         # most entries a part's index may hold
         self.range_max = di.RANGE_MAX
         self.max_index_entries = di.INDEX_MAX
-        self.lanes_per_shard = lanes_per_shard
-        self.lanes = lanes_per_shard * len(self.devices)
-        # rows past the top rung: wider rungs on fewer lanes (one device)
-        self.wide_ladder = () if self.sharded else \
-            _wide_ladder(self.a_ladder[-1], self.lanes)
+        self.lanes = lanes
+        # rows past the top rung: wider rungs on fewer lanes
+        self.wide_ladder = _wide_ladder(self.a_ladder[-1], self.lanes)
         self.row_anchors_max = (self.wide_ladder or self.a_ladder)[-1]
         self.queries = query_reads
         by_bucket = {}
@@ -1103,7 +1028,6 @@ class DeviceOverlapEngine:
         self.part_ranges = []     # per part: hash ranges (0: the ladder)
         self.n_device_calls = 0
         self.n_retry_steps = 0
-        self.n_index_copies = 0   # (part, distinct device) index copies
         self.n_parts_aside = 0    # parts whose host step ran on the thread
         self.spans = None         # what run() recorded (tracing.run)
         self.flag_counts = defaultdict(int)
@@ -1115,9 +1039,8 @@ class DeviceOverlapEngine:
         read from the run's spans (PHASE_SPANS, INDEX_SPANS), step
         calls and retry steps, final flag counts by bit pattern,
         host-fixed rows, host-only parts, parts built by hash range and
-        each part's number of hash ranges, the run's devices (`shards`),
-        index copies (one per part and distinct device) and the parts
-        packed on the side thread."""
+        each part's number of hash ranges and the parts packed on the
+        side thread."""
         fold = self.spans or {"by_name": {}}
         return {"phase_s": tracing.legacy(fold, PHASE_SPANS),
                 "index_s": tracing.legacy(fold, INDEX_SPANS),
@@ -1129,8 +1052,6 @@ class DeviceOverlapEngine:
                 "host_only_parts": self.n_host_only_parts,
                 "hash_range_parts": self.n_hash_range_parts,
                 "part_ranges": list(self.part_ranges),
-                "shards": [str(d) for d in self.devices],
-                "index_copies": self.n_index_copies,
                 "parts_packed_aside": self.n_parts_aside}
 
     @property
@@ -1149,7 +1070,7 @@ class DeviceOverlapEngine:
                         gs.append(_Group(idxs[off:off + self.lanes],
                                          self.queries, self.k, self.w,
                                          self.device, lanes=self.lanes,
-                                         hpc=self.hpc, devices=self.devices))
+                                         hpc=self.hpc))
             self._groups = gs
         return self._groups
 
@@ -1214,65 +1135,46 @@ class DeviceOverlapEngine:
         with span("finalize"):
             return self._finalize(pieces)
 
-    def _replicate(self, pidx):
-        """The part index on each distinct device of the run: the
-        arrays the step reads (the count pass runs on devices[0] alone,
-        so `ih` stays there), copied once per part."""
-        for dev in self.devices:
-            if dev in pidx.copies:
-                continue
-            pidx.copies[dev] = tuple(
-                t.to(dev) for t in (pidx.irid, pidx.ips, pidx.seq_lens,
-                                    pidx.rid_rank, pidx.mid_occ))
-            self.n_index_copies += 1
-
     def _step_group(self, g, pidx, qrank, qbisect, qvalid, A, left, occ,
                     lanes=None):
-        """One (part x group) step at anchor rung A, each shard on its
-        own device: every shard's work is launched before anything is
-        pulled. qrank / qbisect: per-lane numpy arrays; qvalid: per-lane
-        numpy row mask (None: the group's own); left/occ: the count
-        pass's seed-lookup tables. lanes: step only these lanes of the
-        group (one shard), their inputs and accumulators gathered
-        (_Shard.take) and the accumulators scattered back; the pulls then
-        hold len(lanes) lanes. Returns per-shard (packed_small,
-        events_full) lists."""
+        """One (part x group) step at anchor rung A. qrank / qbisect:
+        per-lane numpy arrays; qvalid: per-lane numpy row mask (None: the
+        group's own); left/occ: the count pass's seed-lookup tables.
+        lanes: step only these lanes of the group, their inputs and
+        accumulators gathered (_Group.take) and the accumulators
+        scattered back; the pulls then hold len(lanes) lanes. Returns
+        (packed_small, events_full)."""
         st = self._static(g, A)
-        shards = g.shards if lanes is None else [g.shards[0].take(lanes)]
+        sub = g if lanes is None else g.take(lanes)
         if self.hpc:
-            smalls, fulls = self._step_group_hpc(shards[0], pidx, qrank,
-                                                 qbisect, qvalid, st, left,
-                                                 occ)
+            small, full = self._step_group_hpc(sub, pidx, qrank, qbisect,
+                                               qvalid, st, left, occ)
         else:
-            smalls, fulls = [], []
-            for sh in shards:
-                qv = sh.qvalid if qvalid is None else sh.put(qvalid)
-                (sh.lam, sh.lam2, sh.avgk_set, sh.m_cnts, small,
-                 full) = _step_impl(
-                    *pidx.copies[sh.device], sh.put(left), sh.put(occ),
-                    sh.qps, sh.qcnt, sh.n_slots, sh.n_exp, sh.qlen,
-                    sh.put(qrank), sh.put(qbisect), qv, sh.lam, sh.lam2,
-                    sh.avgk_set, sh.m_cnts, self.pen_tab[sh.device], st)
-                smalls.append(small)
-                fulls.append(full)
+            qv = sub.qvalid if qvalid is None else sub.put(qvalid)
+            (sub.lam, sub.lam2, sub.avgk_set, sub.m_cnts, small,
+             full) = _step_impl(
+                pidx.irid, pidx.ips, pidx.seq_lens, pidx.rid_rank,
+                pidx.mid_occ, sub.put(left), sub.put(occ), sub.qps,
+                sub.qcnt, sub.n_slots, sub.n_exp, sub.qlen, sub.put(qrank),
+                sub.put(qbisect), qv, sub.lam, sub.lam2, sub.avgk_set,
+                sub.m_cnts, self.pen_tab, st)
         if lanes is not None:
-            g.shards[0].give_back(shards[0])
+            g.give_back(sub)
         self.n_device_calls += 1
-        return smalls, fulls
+        return small, full
 
-    def _step_group_hpc(self, sh, pidx, qrank, qbisect, qvalid, st, left,
+    def _step_group_hpc(self, g, pidx, qrank, qbisect, qvalid, st, left,
                         occ):
-        """Two-phase HPC step (one shard, sh): anchors and span sums on
-        the device; per row, the f64-exact gap-penalty table of its mean
-        anchor span (the host spec's avg_qspan) and its kept mean span
-        (state.avg_k) on the host; then the chain fill and the accounting
-        on the device."""
-        irid, ips, seq_lens, rid_rank, mid_occ = pidx.copies[sh.device]
+        """Two-phase HPC step (g: a group or a take of one): anchors and
+        span sums on the device; per row, the f64-exact gap-penalty table
+        of its mean anchor span (the host spec's avg_qspan) and its kept
+        mean span (state.avg_k) on the host; then the chain fill and the
+        accounting on the device."""
         with span("step.hpc_a"):
             anchors, stats = _step_hpc_a(
-                irid, ips, rid_rank, mid_occ, sh.put(left), sh.put(occ),
-                sh.qps, sh.qcnt, sh.n_slots, sh.qspan, sh.qlen,
-                sh.put(qrank), sh.put(qbisect), st)
+                pidx.irid, pidx.ips, pidx.rid_rank, pidx.mid_occ,
+                g.put(left), g.put(occ), g.qps, g.qcnt, g.n_slots, g.qspan,
+                g.qlen, g.put(qrank), g.put(qbisect), st)
             stats_np = stats.cpu().numpy()
         with span("step.hpc_tables"):
             bw = self.cfg.map.bw
@@ -1284,37 +1186,35 @@ class DeviceOverlapEngine:
                 if n_a > 0:
                     pen[r] = gap_penalty_table(np.float32(ssum / n_a), bw)
         with span("step.hpc_b"):
-            qv = sh.qvalid if qvalid is None else sh.put(qvalid)
-            (sh.lam, sh.lam2, sh.avgk_set, sh.avgk_val, sh.m_cnts, small,
+            qv = g.qvalid if qvalid is None else g.put(qvalid)
+            (g.lam, g.lam2, g.avgk_set, g.avgk_val, g.m_cnts, small,
              full) = _step_hpc_b(
-                anchors, seq_lens, sh.qlen, qv, sh.n_exp, sh.lam, sh.lam2,
-                sh.avgk_set, sh.avgk_val, sh.m_cnts,
-                torch.from_numpy(pen).to(sh.device),
-                torch.from_numpy(kept_avg).to(sh.device), st)
-        return [small], [full]
+                anchors, pidx.seq_lens, g.qlen, qv, g.n_exp, g.lam, g.lam2,
+                g.avgk_set, g.avgk_val, g.m_cnts,
+                torch.from_numpy(pen).to(g.device),
+                torch.from_numpy(kept_avg).to(g.device), st)
+        return small, full
 
-    def _unpack_pull(self, smalls_np, fulls, L=None):
-        """Decode a step's packed pulls, one [flags | ev_n | compact
-        events] block of L lanes (default: a shard's) per shard, into
-        (flags, per-row event arrays). A block past EV_B events pulls
-        its uncompacted events instead."""
-        L = L or self.lanes_per_shard
-        flags = np.empty(L * len(smalls_np), np.int32)
-        ev_rows = [None] * (L * len(smalls_np))
-        for s, (b, full) in enumerate(zip(smalls_np, fulls)):
-            flags[s * L:(s + 1) * L] = b[:L]
-            en = b[L:2 * L]
-            if int(en.sum()) > EV_B:
-                full_np = full.cpu().numpy()
-                for r in range(L):
-                    ev_rows[s * L + r] = full_np[r, :int(en[r])]
-                continue
-            ev = b[2 * L:]
-            off = 0
+    def _unpack_pull(self, small_np, full, L=None):
+        """Decode a step's packed pull, one [flags | ev_n | compact
+        events] block of L lanes (default: a group's), into (flags,
+        per-row event arrays). A block past EV_B events pulls its
+        uncompacted events instead."""
+        L = L or self.lanes
+        flags = small_np[:L].copy()
+        en = small_np[L:2 * L]
+        ev_rows = [None] * L
+        if int(en.sum()) > EV_B:
+            full_np = full.cpu().numpy()
             for r in range(L):
-                n = int(en[r])
-                ev_rows[s * L + r] = ev[off:off + n]
-                off += n
+                ev_rows[r] = full_np[r, :int(en[r])]
+            return flags, ev_rows
+        ev = small_np[2 * L:]
+        off = 0
+        for r in range(L):
+            n = int(en[r])
+            ev_rows[r] = ev[off:off + n]
+            off += n
         return flags, ev_rows
 
     def _commit_rows(self, g, want, flags_np, ev_rows, progress,
@@ -1336,9 +1236,8 @@ class DeviceOverlapEngine:
         return [r for r in want
                 if flags_np[r] or g.perm_host[r] or r in forced]
 
-    def _pull_step(self, smalls, fulls, L=None):
-        return self._unpack_pull([s.cpu().numpy() for s in smalls], fulls,
-                                 L=L)
+    def _pull_step(self, small, full, L=None):
+        return self._unpack_pull(small.cpu().numpy(), full, L=L)
 
     def _retry(self, g, pidx, qrank, qbisect, rows, flags_np, ev_rows, A,
                left, occ, progress):
@@ -1347,10 +1246,10 @@ class DeviceOverlapEngine:
         with span("step.retry"):
             qv = np.zeros(self.lanes, np.int32)
             qv[rows] = 1
-            smalls, fulls = self._step_group(g, pidx, qrank, qbisect, qv, A,
-                                             left, occ)
+            small, full = self._step_group(g, pidx, qrank, qbisect, qv, A,
+                                           left, occ)
             self.n_retry_steps += 1
-            flags2, ev_rows2 = self._pull_step(smalls, fulls)
+            flags2, ev_rows2 = self._pull_step(small, full)
             for r in rows:
                 flags_np[r] = flags2[r]
                 ev_rows[r] = ev_rows2[r]
@@ -1368,10 +1267,10 @@ class DeviceOverlapEngine:
         for A, batch in _wide_batches(rows, nq, self.wide_ladder,
                                       self.lanes * self.a_ladder[-1]):
             with span("step.wide"):
-                smalls, fulls = self._step_group(g, pidx, qrank, qbisect,
-                                                 None, A, left, occ,
-                                                 lanes=batch)
-                fl, evs = self._pull_step(smalls, fulls, L=len(batch))
+                small, full = self._step_group(g, pidx, qrank, qbisect,
+                                               None, A, left, occ,
+                                               lanes=batch)
+                fl, evs = self._pull_step(small, full, L=len(batch))
                 for j, r in enumerate(batch):
                     flags_np[r], ev_rows[r] = fl[j], evs[j]
                 bad += self._commit_rows(g, batch, flags_np, ev_rows,
@@ -1388,10 +1287,6 @@ class DeviceOverlapEngine:
         past the top rung step in sub-batches at wider rungs
         (_step_wide), and whatever remains flagged, or is past the
         widest rung, is recomputed exactly on the host."""
-        if self.sharded and pidx.n_ranges:
-            # as the JAX engine does with its range-sharded parts: the
-            # rows are the same either way
-            pidx.drop_device()
         if pidx.host_only:
             self.n_host_only_parts += 1
             logger.warning("part has no device index; computed by the "
@@ -1402,8 +1297,6 @@ class DeviceOverlapEngine:
                                    progress)
             return
 
-        with span("index.replicate"):
-            self._replicate(pidx)
         for g in self.groups:
             with span("step.count"):
                 with span("step.ranks"):
@@ -1436,13 +1329,13 @@ class DeviceOverlapEngine:
                     qvalid[over] = 0
                 nq_max = int(nq[live].max()) if live.any() else 0
                 rung = next(a for a in self.a_ladder if a >= nq_max)
-                smalls, fulls = self._step_group(g, pidx, qrank, qbisect,
-                                                 qvalid, rung, left, occ)
+                small, full = self._step_group(g, pidx, qrank, qbisect,
+                                               qvalid, rung, left, occ)
             with span("step.pull"):
-                smalls_np = [s.cpu().numpy() for s in smalls]
+                small_np = small.cpu().numpy()
 
             with span("step.unpack"):
-                flags_np, ev_rows = self._unpack_pull(smalls_np, fulls)
+                flags_np, ev_rows = self._unpack_pull(small_np, full)
             bad = self._commit_rows(g, list(range(len(g.qids))), flags_np,
                                     ev_rows, progress, forced=over)
             wide_set = set(wide)
@@ -1483,9 +1376,9 @@ class DeviceOverlapEngine:
 
     def _host_fix(self, g, pidx, rows, progress):
         """Exact host recompute of this part's update for flagged rows
-        (their device state was left untouched by the step). The shards'
-        accumulators are pulled to the host, and each shard that holds a
-        fixed row gets its lanes back on its own device."""
+        (their device state was left untouched by the step). The group's
+        accumulators are pulled to the host and, where a row was fixed,
+        put back on the device."""
         self._ensure_host_state(g)
         cfg = self.cfg
         m = cfg.map
@@ -1501,9 +1394,12 @@ class DeviceOverlapEngine:
                 "min_ratio": cfg.flt.min_ratio,
                 "max_overhang": cfg.flt.max_overhang}
         sk = g.host_sketch_lists(self.k, self.w, self.queries)
-        lam, lam2, avgk, mcn = (g.pull(n) for n in ("lam", "lam2",
-                                                     "avgk_set", "m_cnts"))
-        avgkv = g.pull("avgk_val") if g.hpc else None
+        # copies: on the CPU .numpy() would share the state the loop
+        # below writes
+        lam, lam2, avgk, mcn = (
+            getattr(g, n).to("cpu", copy=True).numpy()
+            for n in ("lam", "lam2", "avgk_set", "m_cnts"))
+        avgkv = g.avgk_val.to("cpu", copy=True).numpy() if g.hpc else None
         n_exp_np = g.n_exp.cpu().numpy()
         mask = np.zeros(self.lanes, np.int32)
         for r in rows:
@@ -1556,31 +1452,25 @@ class DeviceOverlapEngine:
             upto = min(len(state.m_cnts), g.M2)
             mcn[r, :upto] = state.m_cnts[:upto].astype(np.int32)
             mask[r] = 1
-        for sh in g.shards:
-            if not mask[sh.lo:sh.hi].any():
-                continue
-            (sh.lam, sh.lam2, sh.avgk_set, sh.m_cnts) = _apply_fix(
-                sh.lam, sh.lam2, sh.avgk_set, sh.m_cnts, sh.put(mask),
-                sh.put(lam), sh.put(lam2), sh.put(avgk), sh.put(mcn))
+        if mask.any():
+            (g.lam, g.lam2, g.avgk_set, g.m_cnts) = _apply_fix(
+                g.lam, g.lam2, g.avgk_set, g.m_cnts, g.put(mask),
+                g.put(lam), g.put(lam2), g.put(avgk), g.put(mcn))
             if g.hpc:
-                sh.avgk_val = sh.put(avgkv)
+                g.avgk_val = g.put(avgkv)
 
     def _finalize(self, pieces):
         """The rows; B2's counters (pieces, a PieceCounts) ride on the
-        first pull of every device and go to the run's counters."""
+        first pull and go to the run's counters."""
         cfg = self.cfg
         rows = [None] * len(self.queries)
         pieces.stage()
         for g in self.groups:
             self._ensure_host_state(g)
-            # every shard's reduction is launched before the first pull
-            outs = [_finalize_group(sh.lam, sh.lam2, sh.m_cnts, sh.n_exp)
-                    for sh in g.shards]
-            lam, lam2, n_match = (
-                np.concatenate([o[i].cpu().numpy() for o in outs])
-                for i in range(3))
+            out = _finalize_group(g.lam, g.lam2, g.m_cnts, g.n_exp)
+            lam, lam2, n_match = (t.cpu().numpy() for t in out[:3])
             n_exp = g.n_exp.cpu().numpy()
-            avgkv = g.pull("avgk_val") if g.hpc else None
+            avgkv = g.avgk_val.cpu().numpy() if g.hpc else None
             for r, qi in enumerate(g.qids):
                 q = self.queries[qi]
                 if qi in self.host_state:
@@ -1610,19 +1500,14 @@ class DeviceOverlapEngine:
 
 def overlap_run_device2(target_iter, query_reads, cfg: OverlapConfig,
                         device="cuda", stats=None, parts=None,
-                        progress=None, devices=None,
-                        lanes_per_shard=GROUP_Q):
+                        progress=None):
     """Device-resident overlap run -> 9-column TSV rows (row-identical
     to overlap_host.overlap_run). stats: optional dict that receives
     the engine's counters (DeviceOverlapEngine.stats). parts:
     pre-grouped part read-lists (the -d prefetch path). progress:
-    called with the query index once per row and part. devices /
-    lanes_per_shard: the query lanes sharded over a device list
-    (DeviceOverlapEngine)."""
+    called with the query index once per row and part."""
     with span("engine.init"):
-        eng = DeviceOverlapEngine(cfg, query_reads, device=device,
-                                  devices=devices,
-                                  lanes_per_shard=lanes_per_shard)
+        eng = DeviceOverlapEngine(cfg, query_reads, device=device)
     rows = eng.run(target_iter, parts=parts, progress=progress)
     if stats is not None:
         stats.update(eng.stats())

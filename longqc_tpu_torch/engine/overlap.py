@@ -6,13 +6,9 @@ int64 above) and HPC with k <= 15. A configuration it rejects (HPC with
 k > 15: NotImplementedError) runs the batched-chainer path, as in the
 JAX package: the host spec (overlap_host.overlap_run) with DeviceChainer
 as its chain_many hook, so the chain-DP fill runs as kernel B2 on the
-device and everything else on the host. LONGQC_OVERLAP_ENGINE
-overrides the dispatch as in the JAX package: `v1` runs the batched
-chainer on any configuration, `v2` raises where the device engine
-rejects the configuration instead of falling back.
+device and everything else on the host.
 """
 
-import os
 from logging import getLogger
 
 import numpy as np
@@ -21,7 +17,7 @@ import torch
 from longqc_tpu_torch import tracing
 from longqc_tpu_torch.config import OverlapConfig
 from longqc_tpu_torch.engine import overlap_host as oh
-from longqc_tpu_torch.engine.device_overlap import (A_BUCKETS, A_LADDER,
+from longqc_tpu_torch.engine.device_overlap import (anchor_rungs,
                                                     overlap_run_device2)
 from longqc_tpu_torch.ops._ext import require_device
 from longqc_tpu_torch.ops.chain import gap_penalty_table
@@ -39,9 +35,8 @@ class DeviceChainer:
     overlap_host.overlap_run: anchor sets sorted by count, 64 per B2
     call (ops/chain_cuda.chain_dp_fill: the kernel on the card, its
     plain version on the CPU), each row padded to the smallest anchor
-    rung that holds it (the engine's ladder: A_LADDER on the card,
-    A_BUCKETS on the CPU); the backtrack runs on the host
-    (overlap_host.chain_backtrack). A row past the top rung is chained
+    rung that holds it (the engine's rungs, anchor_rungs); the
+    backtrack runs on the host (overlap_host.chain_backtrack). A row past the top rung is chained
     by the host spec and counted in n_host_fallback.
 
     Unlike the JAX chainer there are no chunks of 2,048 anchors, no J
@@ -51,8 +46,7 @@ class DeviceChainer:
 
     def __init__(self, device="cuda"):
         self.device = require_device(device)
-        self.a_ladder = (A_LADDER if self.device.type == "cuda"
-                         else A_BUCKETS)
+        self.a_ladder = anchor_rungs(self.device)
         self.n_host_fallback = 0    # rows chained by the host spec
         self.n_device = 0           # rows chained by B2
         self.n_calls = 0            # B2 calls
@@ -124,9 +118,7 @@ def overlap_run_device(target_iter, query_reads, cfg: OverlapConfig,
     The device-resident engine for every configuration it takes; the
     batched-chainer path for the ones it rejects (HPC with k > 15),
     logged and recorded in stats (`engine`, and the chainer's row and
-    call counts). LONGQC_OVERLAP_ENGINE=v1 runs the batched chainer on
-    any configuration; =v2 re-raises the device engine's
-    NotImplementedError instead of falling back.
+    call counts).
     parts: pre-grouped part read-lists (the -d prefetch path).
     index_cache: npz path prefix of the host index cache; only the
     batched-chainer path reads it (the device engine builds its index
@@ -143,19 +135,15 @@ def overlap_run_device(target_iter, query_reads, cfg: OverlapConfig,
 
 def _overlap_run_device(target_iter, query_reads, cfg, device, stats,
                         parts, index_cache, progress):
-    choice = os.environ.get("LONGQC_OVERLAP_ENGINE", "")
-    if choice != "v1":
-        try:
-            rows = overlap_run_device2(target_iter, query_reads, cfg,
-                                       device=device, stats=stats,
-                                       parts=parts, progress=progress)
-            stats["engine"] = "device"
-            return rows
-        except NotImplementedError as e:
-            if choice == "v2":
-                raise
-            logger.info("device engine unavailable for this config (%s); "
-                        "using the batched-chainer path", e)
+    try:
+        rows = overlap_run_device2(target_iter, query_reads, cfg,
+                                   device=device, stats=stats, parts=parts,
+                                   progress=progress)
+        stats["engine"] = "device"
+        return rows
+    except NotImplementedError as e:
+        logger.info("device engine unavailable for this config (%s); "
+                    "using the batched-chainer path", e)
     chainer = DeviceChainer(device=device)
     with count_pieces() as pieces:
         rows = oh.overlap_run(target_iter, query_reads, cfg,

@@ -1,8 +1,9 @@
 """The port engine's part pipeline (part N+1 read and packed on a side
-thread while part N steps) and its switches against the JAX package:
-LONGQC_OVERLAP_ENGINE=v1|v2, the anchor rungs (`a_ladder=` and
-LONGQC_A_LADDER) and the per-row `progress` callback. Rows are strings
-built from integers, so every comparison is exact (tolerance 0)."""
+thread while part N steps), the dispatch between the device engine and
+the batched chainer, the anchor rungs (`a_ladder=`) and the per-row
+`progress` callback, against the JAX package and the host spec. Rows
+are strings built from integers, so every comparison is exact
+(tolerance 0)."""
 
 import threading
 from collections import Counter
@@ -128,37 +129,48 @@ def test_failed_part_raises_in_run(monkeypatch, where):
 
 
 def test_overlap_engine_v1_runs_batched_chainer(monkeypatch):
-    """v1 on a plain k = 12 configuration: the batched chainer, rows
+    """The batched-chainer path on a plain k = 12 configuration: rows
     equal to the device engine's and the JAX package's v1 rows."""
     reads = _reads()
     queries = reads[:24]
     cfg_t, cfg_j = _cfgs()
     rows_dev = tdo.overlap_run_device2(list(reads), queries, cfg_t,
                                        device="cpu")
-    monkeypatch.setenv("LONGQC_OVERLAP_ENGINE", "v1")
-    stats = {}
-    rows = tov.overlap_run_device(list(reads), queries, cfg_t, device="cpu",
-                                  stats=stats)
-    assert stats["engine"] == "batched_chainer" and stats["b2_calls"] >= 1
+    chainer = tov.DeviceChainer("cpu")
+    rows = toh.overlap_run(list(reads), queries, cfg_t, device="cpu",
+                           chain_many=chainer)
+    assert chainer.n_calls >= 1
     assert rows == rows_dev
+    monkeypatch.setenv("LONGQC_OVERLAP_ENGINE", "v1")
     assert rows == jov.overlap_run_device(list(reads), queries, cfg_j)
 
 
-def test_overlap_engine_v2_raises_where_device_engine_rejects(monkeypatch):
-    """v2 with -H -k 17 re-raises the device engine's refusal in both
-    packages; unset, the port falls back to the batched chainer."""
-    q = [["q", "ACGT" * 60, ""]]
-    cfg_t, cfg_j = _cfgs(k=17, w=10, hpc=True)
-    monkeypatch.setenv("LONGQC_OVERLAP_ENGINE", "v2")
-    with pytest.raises(NotImplementedError):
-        jov.overlap_run_device([], q, cfg_j)
-    with pytest.raises(NotImplementedError):
-        tov.overlap_run_device([], q, cfg_t, device="cpu")
-    monkeypatch.delenv("LONGQC_OVERLAP_ENGINE")
+@pytest.mark.parametrize("k,w,hpc,engine", [
+    (12, 5, False, "device"), (19, 10, False, "device"),
+    (15, 10, True, "device"), (17, 10, True, "batched_chainer")],
+    ids=["plain-k12", "wide-k19", "hpc-k15", "hpc-k17"])
+def test_dispatch_follows_the_configuration(monkeypatch, k, w, hpc,
+                                            engine):
+    """The device engine for every configuration it takes, the batched
+    chainer for the one it refuses (HPC with k > 15), whatever the
+    environment holds; the rows equal the host spec's."""
+    monkeypatch.setenv("LONGQC_OVERLAP_ENGINE", "v1")
+    reads = _reads(n=40)
+    queries = reads[:12]
+    cfg_t, _ = _cfgs(k=k, w=w, hpc=hpc)
     stats = {}
-    assert len(tov.overlap_run_device([], q, cfg_t, device="cpu",
-                                      stats=stats)) == 1
-    assert stats["engine"] == "batched_chainer"
+    rows = tov.overlap_run_device(list(reads), queries, cfg_t,
+                                  device="cpu", stats=stats)
+    assert stats["engine"] == engine
+    assert rows == toh.overlap_run(list(reads), queries, cfg_t,
+                                   device="cpu")
+
+
+def test_chainer_and_engine_share_the_rungs():
+    cfg_t, _ = _cfgs()
+    eng = tdo.DeviceOverlapEngine(cfg_t, _reads()[:4], device="cpu")
+    assert tov.DeviceChainer("cpu").a_ladder == eng.a_ladder == \
+        tdo.A_BUCKETS
 
 
 def _host_boundary():
@@ -205,19 +217,14 @@ def test_progress_matches_jax(jax_parts_run, inp, path):
     assert set(got) == set(range(len(queries)))
 
 
-@pytest.mark.parametrize("how", ["argument", "environment"])
-def test_a_ladder_keeps_the_rows(jax_parts_run, monkeypatch, how):
+def test_a_ladder_keeps_the_rows(jax_parts_run):
     """Other anchor rungs (a top rung of 256 sends some rows to the wide
     rungs, sub-batches of fewer lanes past the top) give the rows of the
     default rungs, the JAX engine's."""
     reads = _reads()
     cfg_t, _ = _cfgs(**_PARTS)
-    if how == "argument":
-        eng = tdo.DeviceOverlapEngine(cfg_t, reads[:24], device="cpu",
-                                      a_ladder=(128, 256))
-    else:
-        monkeypatch.setenv("LONGQC_A_LADDER", "128,256")
-        eng = tdo.DeviceOverlapEngine(cfg_t, reads[:24], device="cpu")
+    eng = tdo.DeviceOverlapEngine(cfg_t, reads[:24], device="cpu",
+                                  a_ladder=(128, 256))
     assert eng.a_ladder == (128, 256)
     assert eng.run(list(reads)) == jax_parts_run[0]
     assert eng.spans["counters"]["step.wide_rows"] > 0

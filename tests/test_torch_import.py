@@ -24,7 +24,7 @@ for m in ("io.sampling", "io.stats", "ops.sdust", "ops.gc", "ops.adapter",
           "ops.distfit", "engine.masking", "engine.pipeline",
           "report.coverage", "report.plots", "report.html", "platform",
           "platform.rs", "platform.sequel", "platform.nanopore",
-          "parallel", "parallel.mesh"):
+          "parallel"):
     assert "longqc_tpu_torch." + m in mods, m
 assert "jax" not in sys.modules, "jax imported"
 assert not any(m == "longqc_tpu" or m.startswith("longqc_tpu.")

@@ -542,33 +542,6 @@ def _mesh_inputs():
     return reads, cfg
 
 
-def test_sharded_engine_card_equals_cpu_run(dev):
-    """The query lanes over ["cuda:0"] * 2 (one index copy per part) and,
-    where the machine has two cards, over ["cuda:0", "cuda:1"] (two),
-    against the CPU run of the same shards; 4 parts."""
-    from longqc_tpu_torch.engine.device_overlap import DeviceOverlapEngine
-    from longqc_tpu_torch.ops import _ext
-
-    reads, cfg = _mesh_inputs()
-    queries = reads[:24]
-    runs = [(["cpu"] * 2, 1), (["cuda:0"] * 2, 1)]
-    if torch.cuda.device_count() >= 2:
-        runs.append((["cuda:0", "cuda:1"], 2))
-    got = []
-    for devices, copies in runs:
-        _ext.reset_launches()
-        eng = DeviceOverlapEngine(cfg, queries, devices=devices,
-                                  lanes_per_shard=8)
-        got.append(eng.run(list(reads)))
-        st = eng.stats()
-        n_parts = len(st["part_ranges"])
-        assert n_parts >= 3 and st["parts_packed_aside"] == n_parts
-        assert st["index_copies"] == copies * n_parts
-        if devices[0] != "cpu":
-            assert _ext.LAUNCHES["chain"] == 2 * st["device_calls"] > 0
-    assert all(rows == got[0] for rows in got[1:])
-
-
 def test_part_pipeline_card_equals_cpu_run(dev):
     """A run of 4 parts on one card against its CPU run, B1-B4
     launched."""
@@ -656,7 +629,7 @@ def test_wide_rows_card_equal_cpu_run(dev):
     want = oh.overlap_run(list(targets), queries, cfg, device="cpu")
     for ladder, lanes in (((512, 1024), 8), ((1024, 2048), 4)):
         eng = DeviceOverlapEngine(cfg, queries, a_ladder=ladder,
-                                  lanes_per_shard=lanes)
+                                  lanes=lanes)
         assert eng.run(list(targets)) == want
         assert eng.spans["counters"]["step.wide_rows"] > 0
         assert eng.stats()["host_fixed_rows"] == 0

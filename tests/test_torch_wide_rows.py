@@ -98,7 +98,7 @@ def test_wide_rows_equal_host_spec_jax_and_reference(host_rows,
                                                      monkeypatch):
     reads = _reads()
     spy = _Spy(monkeypatch)
-    eng = _engine(reads[:24], a_ladder=LADDER, lanes_per_shard=8)
+    eng = _engine(reads[:24], a_ladder=LADDER, lanes=8)
     assert eng.wide_ladder == (1024, 2048, 4096)
     rows = eng.run(list(reads))
     assert rows == host_rows
@@ -142,7 +142,7 @@ def test_row_past_the_widest_rung_is_host_fixed(host_rows, monkeypatch):
     computed by the host spec, the others step."""
     reads = _reads()
     spy = _Spy(monkeypatch)
-    eng = _engine(reads[:24], a_ladder=LADDER, lanes_per_shard=2)
+    eng = _engine(reads[:24], a_ladder=LADDER, lanes=2)
     assert eng.wide_ladder == (1024,) and eng.row_anchors_max == 1024
     assert eng.run(list(reads)) == host_rows
     nq = spy.n_q()
@@ -165,13 +165,13 @@ def test_million_column_bucket_equals_host_spec(monkeypatch):
     queries = [["ul0", big, "I" * len(big)]] + targets[:2]
     assert tdo._len_bucket(len(big)) == 1 << 20
     spy = _Spy(monkeypatch)
-    eng = _engine(queries, a_ladder=(1024, 2048), lanes_per_shard=4)
+    eng = _engine(queries, a_ladder=(1024, 2048), lanes=4)
     assert eng.wide_ladder == (4096, 8192)
     rows = eng.run(list(targets))
     assert rows == toh.overlap_run(list(targets), queries, CFG,
                                    device="cpu")
     g, = [g for g in eng.groups if g.blen == 1 << 20]
-    assert tuple(g.shards[0].m_cnts.shape) == (4, 1 << 20)
+    assert tuple(g.m_cnts.shape) == (4, 1 << 20)
     assert eng.stats()["host_fixed_rows"] == 0
     (q, a, n), = spy.wide(2048)
     assert (q, a) == (1, 8192) and 4096 < int(n[0]) <= 8192
@@ -196,21 +196,6 @@ def test_groups_that_fit_the_ladder_step_as_before(monkeypatch):
     assert eng.stats()["host_fixed_rows"] == 0
 
 
-def test_device_list_host_fixes_rows_past_the_top(host_rows, monkeypatch):
-    """Under a device list the rows past the top rung keep the host fix:
-    no wide ladder, the same rows."""
-    reads = _reads()
-    spy = _Spy(monkeypatch)
-    eng = _engine(reads[:24], devices=["cpu"] * 2, lanes_per_shard=4,
-                  a_ladder=LADDER)
-    assert eng.wide_ladder == () and eng.row_anchors_max == LADDER[-1]
-    assert eng.run(list(reads)) == host_rows
-    n_over = int((spy.n_q() > LADDER[-1]).sum())
-    assert eng.stats()["host_fixed_rows"] == n_over == 16
-    assert "step.wide_rows" not in eng.spans["counters"]
-    assert all(a <= LADDER[-1] for _q, a, _n in spy.steps)
-
-
 def test_hpc_rows_past_the_top_step_wide(monkeypatch):
     """The HPC engine (the spike-in filter run) steps its rows past the
     top rung at the wide rungs too, through the same sub-batch step: 31
@@ -224,7 +209,7 @@ def test_hpc_rows_past_the_top_step_wide(monkeypatch):
                         flt=FltOpt(min_ovlp=0, min_coverage=1),
                         filter_mode=True)
     spy = _Spy(monkeypatch)
-    eng = _engine(reads, cfg=cfg, a_ladder=(16, 32), lanes_per_shard=16)
+    eng = _engine(reads, cfg=cfg, a_ladder=(16, 32), lanes=16)
     assert eng.wide_ladder == (64, 128, 256, 512)
     assert eng.run(list(target)) == toh.overlap_run(list(target), reads,
                                                     cfg, device="cpu")
