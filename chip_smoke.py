@@ -10,12 +10,14 @@ prints the final result line):
      device -> fail
   2. build the five kernels (B1 sketch, B2 chain fill, B3 peak,
      B4 min-rank, B5 extension, with its one-warp body for W <= 63 and
-     its wide body, strips of 64 columns a warp, for wider bands) from
-     longqc_tpu_torch/csrc, the port's FASTA/FASTQ reader
+     its wide body, strips of 64 columns a warp, for wider bands), the
+     adapter alignment and the tile packing from longqc_tpu_torch/csrc,
+     the port's FASTA/FASTQ reader
      (csrc/fastx_native.cpp, g++ -O3) and its sdust recursion
      (csrc/sdust_native.cpp); the registers, stack frame and spills of
-     every B1 and B5 instance (one more `nvcc -Xptxas -v` each of
-     csrc/sketch.cu and csrc/extend.cu alone, beside the build)
+     every B1 and B5 instance and of the tile packing (one more `nvcc
+     -Xptxas -v` each of csrc/sketch.cu, csrc/extend.cu and csrc/pack.cu
+     alone, beside the build)
   3. B1-B4 against their plain PyTorch versions on the card, at
      production shapes, with exact equality (tolerance 0: all outputs
      are integers): B1 on 256 x 8192 and 32 x 65536 tiles of reads with
@@ -36,7 +38,15 @@ prints the final result line):
      far forests at Q x A = 16 x 2^21 (B4's pending mask in device
      memory) and 64 x 2^19, B2 at 64 x 2^19 (row 0 against its plain
      version), the plain versions run on CPU tensors in side processes
-     from phase 4 on
+     from phase 4 on; then the tile packing (csrc/pack.cu) at the index
+     ladder's three tile shapes and a jumbo tile (256 x 8192, 32 x
+     65536, 4 x 524288, 1 x 4,194,304; tests/torch_util.pack_tile: reads
+     of no bases, of every ASCII byte, with N, lower case, U and IUPAC
+     bases, rows cut by READS_PER_ROW, an empty last row): its four word
+     arrays against the plain twin, exact; the kernel alone, with the
+     tile's two uploads, and the twin timed, the bound (bytes); the peak
+     device bytes a column of a tile's build step (the words, B1, the
+     chunk) against the index's reckoning, TILE_BYTES_PER_COLUMN
   4. small end to end: the engine's rows on the card equal the port's
      host spec (overlap_host.overlap_run), at k=12 w=5 and, so that the
      run-time-ring B1 variants run on a path, at w=40 with k=12 and
@@ -93,8 +103,9 @@ prints the final result line):
      the merge code: ih non-decreasing, its real entries the sum of the
      tiles' emission counts, the (rid, pos) multiset of 4,096 sampled
      hashes equal to the tiles' chunks', mid_occ the kth count of
-     torch.unique_consecutive over ih; its peak device memory and its
-     seconds (host packing, B1 plus chunks, the merge) printed
+     torch.unique_consecutive over ih, index.pack_tiles its tiles; its
+     peak device memory and its seconds (host layout, the tiles' words
+     plus B1 plus chunks, the merge) printed
  10. the port's sampleqc through cli.main on the card (default -n 5000;
      with --no-report, and saying so, where matplotlib or jinja2 is not
      installed, so the figures and the HTML are not drawn there):
@@ -199,16 +210,18 @@ N_QUERIES = 5000        # the sampleqc default -n
 ONT_RUN = dict(
     phase="phase 5", k=12, w=5, p=160, q=160, seed=2024, n_targets=20000,
     min_len=1000, max_len=8000, err=0.12, junk=0.1, prefix="",
-    kernels=("sketch", "chain", "peak", "minrank"), range_rerun=True)
+    kernels=("sketch", "chain", "peak", "minrank", "pack_tile"),
+    range_rerun=True)
 HIFI_RUN = dict(
     phase="phase 8", k=19, w=10, p=80, q=160, seed=1919, n_targets=6000,
     min_len=10000, max_len=20000, err=0.01, junk=0.02, prefix="hifi_",
-    kernels=("sketch_u64", "chain", "peak", "minrank"))
+    kernels=("sketch_u64", "chain", "peak", "minrank", "pack_tile"))
 # phase 9: a part of at least 1 Gbp at phase 5's settings
 BIG_RUN = dict(
     phase="phase 9", k=12, w=5, p=160, q=160, seed=909, genome=110_000_000,
     n_targets=230_000, min_len=1000, max_len=8000, err=0.12, junk=0.1,
-    min_bp=1_000_000_000, kernels=("sketch", "chain", "peak", "minrank"))
+    min_bp=1_000_000_000,
+    kernels=("sketch", "chain", "peak", "minrank", "pack_tile"))
 N_SAMPLED_HASHES = 4096
 
 B1 = ("longqc_tpu_torch/csrc/sketch.cu",
@@ -232,11 +245,15 @@ SOURCES = {
     "adapter_align": ("longqc_tpu_torch/csrc/adapter.cu",
                       "none (the host traceback, longqc_tpu/ops/adapter.py "
                       "hw_align_host, hw_align_optrange)"),
+    "pack_tile": ("longqc_tpu_torch/csrc/pack.cu",
+                  "none (the host packer, longqc_tpu/engine/"
+                  "device_index.py _TileBuilder._pack)"),
 }
 HPC_KERNELS = ("chain", "peak", "minrank")
 # CUDA kernel symbol prefix -> kernel name (the profiler's key); the B1
 # variants are told apart by their template arguments (b1_variant)
-SYMBOLS = {"lq_chain": "chain", "lq_peak": "peak", "lq_minrank": "minrank"}
+SYMBOLS = {"lq_chain": "chain", "lq_peak": "peak", "lq_minrank": "minrank",
+           "lq_pack": "pack_tile"}
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory
 INT_OPS_S = 67e12       # 32-bit operations outside the tensor cores
 # integer operations of the function per unit of work (see PERF.md)
@@ -247,6 +264,8 @@ OPS_PER_CELL = {"extz": 12, "extd": 18}   # B5, per band cell
 OPS_PER_ALIGN_CELL = 20  # adapter_align, per DP cell
 # phase 6b: (adapter length, windows) of a sampleqc job of ont-ligation
 ADAPTER_RUNS = ((28, 1850), (18, 3700))
+# phase 3's tile packing: (R, W) of the index ladder's levels and a jumbo
+PACK_SHAPES = ((256, 8192), (32, 65536), (4, 524288), (1, 1 << 22))
 
 
 def log(*a):
@@ -405,6 +424,17 @@ def sketch_resources():
     return res
 
 
+def pack_resources():
+    """The tile packing kernel's resources, printed."""
+    from longqc_tpu_torch.ops import _ext
+    res = ptxas_resources(
+        os.path.join(_ext.CSRC, "pack.cu"),
+        lambda sym: ("pack_tile", "one column a thread")
+        if "lq_pack_tile_kernel" in sym else None)
+    log_resources("pack", res, 1)
+    return res
+
+
 def extend_variant(symbol):
     """(LAUNCHES name, instance) of a B5 kernel symbol (mangled): the
     one-warp body `lq_extend_kernel<CPL, DUAL>` -> ("extz" / "extd",
@@ -551,6 +581,88 @@ def check_sketch_variants(dev):
                   ("ms", "plain_ms", "bound_ms", "kernel_alone_ms")})
         out[name] = r
     return out
+
+
+def check_pack(dev):
+    """Phase 3's tile packing: csrc/pack.cu (ops/pack_cuda.pack_words) at
+    PACK_SHAPES against its plain twin, all four word arrays exact, one
+    launch a tile; the kernel alone on resident inputs, with the tile's
+    two uploads (its bytes and its int32 layout, as
+    engine/device_index._run_tile makes them), and the twin on the
+    host, timed; the bound (bytes); the peak device bytes a column of
+    _run_tile (the words, B1, the chunk) at k=12 w=5, which must stay
+    within the index's reckoning, TILE_BYTES_PER_COLUMN. Returns
+    {"pack_tile": results}, the first shape's numbers unsuffixed and
+    the others' suffixed _<R>x<W>."""
+    import numpy as np
+    import torch
+    from torch_util import pack_tile
+    from longqc_tpu_torch.engine import device_index as di
+    from longqc_tpu_torch.ops import _ext, pack_cuda
+
+    rng = np.random.RandomState(23)
+    out = {"max_abs_err": 0}
+    for i, (R, W) in enumerate(PACK_SHAPES):
+        t = pack_tile(rng, R, W)
+        host = [torch.from_numpy(a) for a in (t.raw, t.row_off, t.segs)]
+        lay = np.concatenate([t.starts.ravel(), t.gids.ravel(), t.row_off,
+                              t.segs.ravel()])
+        ins = [a.to(dev) for a in host]
+        _ext.reset_launches()
+        got = pack_cuda.pack_words(*ins, R=R, W=W)
+        torch.cuda.synchronize()
+        if _ext.LAUNCHES["pack_tile"] != 1:
+            raise AssertionError("pack_tile %dx%d: %d launches" % (
+                R, W, _ext.LAUNCHES["pack_tile"]))
+        t0 = time.time()
+        plain = pack_cuda.pack_words_plain(t.raw, t.row_off, t.segs, R, W)
+        plain_ms = (time.time() - t0) * 1e3
+        for name, g, p in zip(("codes2", "nmask", "startmask", "endmask"),
+                              got, plain):
+            out["max_abs_err"] = max(out["max_abs_err"], require_equal(
+                "pack_tile %s %dx%d" % (name, R, W), g.cpu(),
+                torch.from_numpy(p.view(np.int32))))
+        ms = cuda_ms(lambda: pack_cuda.pack_words(*ins, R=R, W=W), 20)
+
+        def uploaded():
+            lay_d = torch.from_numpy(lay).to(dev)
+            n = lay.size - t.segs.size
+            return pack_cuda.pack_words(torch.from_numpy(t.raw).to(dev),
+                                        lay_d[n - R - 1:n],
+                                        lay_d[n:].view(-1, 4), R=R, W=W)
+        up_ms = cuda_ms(uploaded, 5)
+        b_ms, by = bound(nbytes(*ins, *got), 0)
+        del got
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        r = di._run_tile(t, 12, 5, dev)
+        torch.cuda.synchronize()
+        per_col = (torch.cuda.max_memory_allocated(dev) - held) / (R * W)
+        del r
+        log("pack_tile %dx%d (%d reads, %d bytes, %d rows used, %d reads "
+            "in the fullest): equal; kernel %.4f ms, with the uploads %.4f "
+            "ms, plain twin %.1f ms; bound %.2f us (%s), %.0fx; the tile's "
+            "build step (words, B1, chunk) %.1f peak bytes a column (the "
+            "reckoning's %d)" % (
+                R, W, t.n_reads, t.raw.size,
+                int((np.diff(t.row_off) > 0).sum()),
+                int(np.diff(t.row_off).max()), ms, up_ms, plain_ms,
+                b_ms * 1e3, by, ms / b_ms, per_col,
+                di.TILE_BYTES_PER_COLUMN))
+        if per_col > di.TILE_BYTES_PER_COLUMN:
+            raise AssertionError("a %dx%d tile's build step peaks at %.1f "
+                                 "bytes a column, past the reckoning's %d"
+                                 % (R, W, per_col,
+                                    di.TILE_BYTES_PER_COLUMN))
+        sfx = "" if i == 0 else "_%dx%d" % (R, W)
+        out.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
+                    "bound_ms" + sfx: b_ms, "upload_ms" + sfx: up_ms,
+                    "bytes_per_column" + sfx: per_col})
+        if i == 0:
+            out.update({"bound_by": by, "shape": "%d x %d" % (R, W)})
+    return {"pack_tile": out}
 
 
 def rand_anchor_rows(rng, Q, A):
@@ -1672,6 +1784,12 @@ def big_part_run(dev, workdir, data_proc):
     if idx["n_ranges"] < 2:
         raise AssertionError("%s: the index was not built by hash range"
                              % phase)
+    packed = build["spans"]["counters"].get("index.pack_tiles", 0)
+    log("%s: index.pack_tiles %d of %d tiles" % (phase, packed,
+                                                   idx["n_tiles"]))
+    if packed != idx["n_tiles"]:
+        raise AssertionError("%s: %d tiles packed on the card, %d built"
+                             % (phase, packed, idx["n_tiles"]))
     if not bool((ih[1:] >= ih[:-1]).all()):
         raise AssertionError("%s: ih is not sorted" % phase)
     if n_real != sum(sample.n_exp) or n_real != idx["n_real"]:
@@ -2756,15 +2874,17 @@ def run_phases(dev, workdir, sides, t_all):
 
     # --- phase 2: build; every B1 and B5 instance's resources beside it
     t = time.time()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         res_futures = (pool.submit(sketch_resources),
-                       pool.submit(extend_resources))
+                       pool.submit(extend_resources),
+                       pool.submit(pack_resources))
         mod = _ext.lib(verbose=True)
         log("built %s in %.1f s" % (os.path.relpath(mod.__file__, HERE),
                                     time.time() - t))
-        resources, ext_resources = (f.result() for f in res_futures)
-    log("B1 and B5 resources read beside the build (%.1f s in all)"
-        % (time.time() - t))
+        resources, ext_resources, pack_res = (f.result()
+                                              for f in res_futures)
+    log("B1, B5 and tile packing resources read beside the build (%.1f s "
+        "in all)" % (time.time() - t))
     from longqc_tpu_torch.io import native
     if not native.available():
         raise AssertionError("the port's FASTA/FASTQ reader did not build: "
@@ -2782,6 +2902,9 @@ def run_phases(dev, workdir, sides, t_all):
     t = time.time()
     res = check_sketch_variants(dev)
     log("phase 3, B1: %.1f s" % (time.time() - t))
+    t = time.time()
+    res.update(check_pack(dev))
+    log("phase 3, tile packing: %.1f s" % (time.time() - t))
     res.update(check_chain_ringprop(dev, 12))
     # phase 15's data and the wide rungs' plain versions, on the CPU
     # beside phases 4-15
@@ -2880,7 +3003,8 @@ def run_phases(dev, workdir, sides, t_all):
         entry.update({key: val for key, val in r.items()
                       if key.startswith(("ms_", "plain_ms_", "bound_ms_",
                                          "plain_cpu_ms_", "kernel_alone_ms",
-                                         "plan_ms"))})
+                                         "plan_ms", "upload_ms",
+                                         "bytes_per_column"))})
         if name.startswith("sketch"):
             entry["resources"] = {
                 "%d slots" % wm: v for (n, wm), v in sorted(resources.items())
@@ -2889,6 +3013,8 @@ def run_phases(dev, workdir, sides, t_all):
             entry["resources"] = {
                 arg: v for (n, arg), v in sorted(ext_resources.items())
                 if n == name}
+        if name == "pack_tile":
+            entry["resources"] = {arg: v for (n, arg), v in pack_res.items()}
         if name in ONT_RUN["kernels"]:
             entry["device_ms_phase5"] = dev_ms[name]
         if name in HIFI_RUN["kernels"]:

@@ -3,7 +3,8 @@
 // Each binding makes the device of its tensors current (CUDAGuard) and
 // launches on that device's current stream, so a tensor on any card is
 // launched where it lives. The Python wrappers (ops/sketch_cuda.py,
-// ops/chain_cuda.py, ops/ringprop.py, ops/extend_cuda.py, ops/adapter.py)
+// ops/chain_cuda.py, ops/ringprop.py, ops/extend_cuda.py, ops/adapter.py,
+// ops/pack_cuda.py)
 // check shapes, dtypes, devices and contiguity, allocate the outputs and
 // count the launches.
 
@@ -120,6 +121,17 @@ void adapter_align(T adp, T win, T wlen, T out, T moves, T edges,
                "adapter_align");
 }
 
+void pack_tile(T raw, T row_off, T segs, T codes2, T nmask, T smask,
+               T emask, int64_t W) {
+  const c10::cuda::CUDAGuard guard(codes2.device());
+  check_launch(lq_pack_tile(raw.data_ptr(), row_off.data_ptr(),
+                            segs.data_ptr(), codes2.data_ptr(),
+                            nmask.data_ptr(), smask.data_ptr(),
+                            emask.data_ptr(), (int)codes2.size(0), (int)W,
+                            stream_of(codes2)),
+               "pack_tile");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -132,4 +144,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "B5 banded extension, the wide body (any W)");
   m.def("adapter_align", &adapter_align,
         "the adapter search's batched alignment and traceback");
+  m.def("pack_tile", &pack_tile,
+        "a part tile's words from its reads' bytes and layout");
 }

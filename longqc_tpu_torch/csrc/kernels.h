@@ -1,10 +1,10 @@
 // Plain C launch interface of the hand-written kernels (sketch.cu,
-// chain.cu, ringprop.cu, extend.cu, adapter.cu), bound to PyTorch by
-// bind.cpp. Every pointer is a contiguous int32 device buffer of the
-// layout its .cu file documents (lq_sketch_rows with wide != 0: `plan`
-// and `hash` are int64 buffers; lq_adapter_align's `moves` holds bytes);
-// each function launches on `stream` and returns the
-// cudaError_t of its launch (0 on success).
+// chain.cu, ringprop.cu, extend.cu, adapter.cu, pack.cu), bound to
+// PyTorch by bind.cpp. Every pointer is a contiguous int32 device buffer
+// of the layout its .cu file documents (lq_sketch_rows with wide != 0:
+// `plan` and `hash` are int64 buffers; lq_adapter_align's `moves` and
+// lq_pack_tile's `raw` hold bytes); each function launches on `stream`
+// and returns the cudaError_t of its launch (0 on success).
 #pragma once
 
 #ifdef __cplusplus
@@ -54,6 +54,13 @@ int lq_extend_wide_fill(const void* q, const void* ql, const void* t,
 int lq_adapter_align(const void* adp, const void* win, const void* wlen,
                      void* out, void* moves, void* edges, int C, int m,
                      int Lw, int nslot, void* stream);
+
+// one tile's words (R x W / 16 codes2, R x W / 32 of each mask) from its
+// reads' bytes `raw` (uint8) and its layout: row_off (R + 1) and segs
+// (4 ints a read)
+int lq_pack_tile(const void* raw, const void* row_off, const void* segs,
+                 void* codes2, void* nmask, void* smask, void* emask, int R,
+                 int W, void* stream);
 
 #ifdef __cplusplus
 }

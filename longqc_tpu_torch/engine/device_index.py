@@ -2,9 +2,12 @@
 
 Torch port of longqc_tpu/engine/device_index.py:
 
-  reads --host pack--> multi-read 2-bit tiles (R, W; reads laid
-      back-to-back in a row behind w-1 ambiguous separator bases)
-    --per tile--> B1 sketch kernel (ops/sketch_cuda: per-column emit,
+  reads --host layout--> multi-read tiles (R, W; reads laid
+      back-to-back in a row behind w-1 ambiguous separator bases): each
+      tile's reads' bytes and where each read lies
+    --per tile--> its 2-bit words made where it is sketched (on the card
+      csrc/pack.cu, ops/pack_cuda) -> B1 sketch kernel
+      (ops/sketch_cuda: per-column emit,
       hash, read id, local position, strand) -> duplicate-emission
       expansion -> single-key sort by hash => one sorted chunk
     --combine--> concatenate the chunks (each cropped to 3/8 of its
@@ -46,18 +49,17 @@ after every real hash; irid / ips are int32 either way.
 """
 
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
 
 from longqc_tpu_torch.io.pack import SEQ_NT4_SKETCH
+from longqc_tpu_torch.ops.pack_cuda import (packbits32, pack_words,
+                                            pack_words_plain)
 from longqc_tpu_torch.ops.sketch_cuda import (READS_PER_ROW, hash_dtype,
                                               sketch_tiles)
-from longqc_tpu_torch.tracing import span
-
-# single-pass encode tables: ASCII byte -> 2-bit code / ambiguity
-_CODE_OF = np.where(SEQ_NT4_SKETCH < 4, SEQ_NT4_SKETCH, 0).astype(np.uint8)
-_AMB_OF = SEQ_NT4_SKETCH >= 4
+from longqc_tpu_torch.tracing import count, span
 
 # tile ladder: every level holds the same number of bases
 TILE_LADDER = ((256, 8192), (32, 65536), (4, 524288))
@@ -79,17 +81,43 @@ TILE_LADDER_SMALL = ((16, 2048), (4, 8192), (1, 32768))
 
 @dataclass
 class Tile:
-    """One packed multi-read tile (host arrays)."""
+    """One multi-read tile: its reads' bytes and its layout (host arrays;
+    the layout record of ops/pack_cuda). The words B1 reads are made from
+    them where the tile is sketched (_run_tile); codes2, nmask,
+    startmask and endmask give them on the host, made by the plain twin
+    on first read."""
     R: int
     W: int
-    codes2: np.ndarray      # (R, W//16) uint32, 2-bit codes
-    nmask: np.ndarray       # (R, W//32) uint32, 1 = ambiguous/padding
-    startmask: np.ndarray   # (R, W//32) uint32, 1 = segment start
-    endmask: np.ndarray     # (R, W//32) uint32, 1 = read's last column
+    raw: np.ndarray         # (n_bytes,) uint8, the reads' ASCII bytes
+    row_off: np.ndarray     # (R + 1,) int32, row r's reads in segs
+    segs: np.ndarray        # (n_reads, 4) int32 segment start, first base,
+    #                         length, byte offset of each read
     starts: np.ndarray      # (R, READS_PER_ROW) int32 read start pos
     gids: np.ndarray        # (R, READS_PER_ROW) int32 global read id
     used: np.ndarray        # (R,) int32 row used width
     n_reads: int
+
+    @cached_property
+    def words(self):
+        """(codes2, nmask, startmask, endmask) host uint32 words."""
+        return pack_words_plain(self.raw, self.row_off, self.segs, self.R,
+                                self.W)
+
+    @property
+    def codes2(self):       # (R, W//16) 2-bit codes
+        return self.words[0]
+
+    @property
+    def nmask(self):        # (R, W//32) 1 = ambiguous/padding
+        return self.words[1]
+
+    @property
+    def startmask(self):    # (R, W//32) 1 = segment start
+        return self.words[2]
+
+    @property
+    def endmask(self):      # (R, W//32) 1 = read's last column
+        return self.words[3]
 
 
 class _TileBuilder:
@@ -122,69 +150,37 @@ class _TileBuilder:
                 for off in range(0, len(self.rows), self.R)]
 
     def _pack(self, rows):
-        """Pack one tile: the python loop computes only the layout;
-        encoding and mask fills are single vectorized passes."""
-        R, W, sep = self.R, self.W, self.sep
+        """One tile's layout and its reads' bytes, joined in tile order;
+        no per-base work (the words are made from them by _run_tile)."""
+        R, sep = self.R, self.sep
         starts = np.zeros((R, READS_PER_ROW), np.int32)
         gids = np.full((R, READS_PER_ROW), -1, np.int32)
         used = np.zeros(R, np.int32)
-        seqs, rposs, rlens = [], [], []
-        start_cols, end_cols = [], []     # flat R*W scatter targets
-        n_reads = 0
+        row_off = np.zeros(R + 1, np.int32)
+        seqs, segs = [], []
+        at = 0
         for r, row in enumerate(rows):
             pos = 0
             for j, (gid, seq) in enumerate(row):
+                # separators belong to the NEXT segment: a window ending
+                # at a separator entry may only ever track entries of
+                # the read the separators precede
+                seg = pos
                 if j > 0:
-                    # separators belong to the NEXT segment: a window
-                    # ending at a separator entry may only ever track
-                    # entries of the read the separators precede
-                    start_cols.append(r * W + pos)
                     pos += sep
-                else:
-                    start_cols.append(r * W)
+                segs.append((seg, pos, len(seq), at))
                 seqs.append(seq)
-                rposs.append(r * W + pos)
-                rlens.append(len(seq))
                 starts[r, j] = pos
                 gids[r, j] = gid
                 pos += len(seq)
-                end_cols.append(r * W + pos - 1)
-                n_reads += 1
+                at += len(seq)
             used[r] = pos
-        raw = np.frombuffer("".join(seqs).encode("ascii"), np.uint8)
-        rlens = np.asarray(rlens, np.int32)
-        cum = np.concatenate([np.zeros(1, np.int64),
-                              np.cumsum(rlens)]).astype(np.int64)
-        # ragged arange: flat tile index of every base of every read
-        tgt = np.arange(cum[-1], dtype=np.int64)
-        tgt += np.repeat(np.asarray(rposs, np.int64) - cum[:-1], rlens)
-        codes = np.zeros(R * W, np.uint8)
-        amb = np.ones(R * W, bool)          # padding counts as ambiguous
-        codes[tgt] = _CODE_OF[raw]
-        amb[tgt] = _AMB_OF[raw]
-        startb = np.zeros(R * W, bool)
-        startb[np.asarray(start_cols, np.int64)] = True
-        endb = np.zeros(R * W, bool)
-        endb[np.asarray(end_cols, np.int64)] = True
-        return Tile(R, W, _packbits32(codes.reshape(R, W)),
-                    _packbits32(amb.reshape(R, W)),
-                    _packbits32(startb.reshape(R, W)),
-                    _packbits32(endb.reshape(R, W)),
-                    starts, gids, used, n_reads)
-
-
-def _packbits32(arr):
-    """Bit/2-bit packing into uint32 words, little-endian in the word.
-    Boolean arrays pack 32/word; uint8 code arrays (0..3) 16/word."""
-    if arr.dtype == np.uint8:
-        R, W = arr.shape
-        a = arr.reshape(R, W // 16, 16).astype(np.uint32)
-        shifts = (2 * np.arange(16, dtype=np.uint32))[None, None, :]
-        return (a << shifts).sum(axis=2, dtype=np.uint32)
-    R, W = arr.shape
-    a = arr.reshape(R, W // 32, 32).astype(np.uint32)
-    shifts = np.arange(32, dtype=np.uint32)[None, None, :]
-    return (a << shifts).sum(axis=2, dtype=np.uint32)
+            row_off[r + 1] = len(segs)
+        row_off[len(rows) + 1:] = len(segs)
+        raw = np.frombuffer(bytearray("".join(seqs), "ascii"), np.uint8)
+        return Tile(R, self.W, raw, row_off,
+                    np.asarray(segs, np.int32).reshape(-1, 4), starts, gids,
+                    used, len(segs))
 
 
 def pack_single_rows(seqs, W):
@@ -205,8 +201,8 @@ def pack_single_rows(seqs, W):
     starts = np.zeros((R, READS_PER_ROW), np.int32)
     gids = np.zeros((R, READS_PER_ROW), np.int32)
     gids[:, 0] = np.arange(R, dtype=np.int32)
-    return (_packbits32(codes), _packbits32(amb), _packbits32(startb),
-            _packbits32(endb), starts, gids)
+    return (packbits32(codes), packbits32(amb), packbits32(startb),
+            packbits32(endb), starts, gids)
 
 
 def pack_part_tiles(part, w, ladder=TILE_LADDER, jumbo_w=JUMBO_W):
@@ -309,12 +305,22 @@ class IndexOverflowError(RuntimeError):
 
 
 def _run_tile(t, k, w, device):
-    dev = lambda a: to_device_words(a, device)  # noqa: E731
-    return tile_flat(dev(t.codes2), dev(t.nmask), dev(t.startmask),
-                     dev(t.endmask),
-                     torch.from_numpy(t.starts).to(device),
-                     torch.from_numpy(t.gids).to(device),
-                     W=t.W, k=k, w=w)
+    """tile_flat of one tile, its words made on `device` from its bytes
+    and layout (ops/pack_cuda.pack_words: on the card one launch of
+    csrc/pack.cu, counted under index.pack_tiles; 0 on the CPU). Two
+    uploads: the bytes, and the int32 layout with starts and gids."""
+    device = torch.device(device)
+    R, nr = t.R, t.R * READS_PER_ROW
+    lay = torch.from_numpy(np.concatenate(
+        [t.starts.ravel(), t.gids.ravel(), t.row_off,
+         t.segs.ravel()])).to(device)
+    starts, gids, row_off, segs = torch.split(
+        lay, [nr, nr, R + 1, t.segs.size])
+    words = pack_words(torch.from_numpy(t.raw).to(device), row_off,
+                       segs.view(-1, 4), R=R, W=t.W)
+    count("index.pack_tiles", int(device.type == "cuda"))
+    return tile_flat(*words, starts.view(R, READS_PER_ROW),
+                     gids.view(R, READS_PER_ROW), W=t.W, k=k, w=w)
 
 
 def _merge_chunks(chunks, n_idx_sizes):
@@ -410,9 +416,10 @@ def _mid_occ(ih, mid_occ_fixed, mid_occ_frac):
 
 CROP_NUM, CROP_DEN = 3, 8
 # bytes the build holds besides its chunks and output: per column of the
-# widest tile (B1 outputs, the expansion's int64 temporaries, the
-# chunk's sort) and per entry of one range's sort (the slices, sorted
-# hashes, int64 order, the gathered payloads, the sort's scratch)
+# widest tile (its bytes and words, B1 outputs, the expansion's int64
+# temporaries, the chunk's sort; 85-87 measured on the card at k=12
+# w=5) and per entry of one range's sort (the slices, sorted hashes,
+# int64 order, the gathered payloads, the sort's scratch)
 TILE_BYTES_PER_COLUMN = 160
 
 
@@ -566,8 +573,8 @@ def _range_merge(chunks, k, n_real, range_max, mid_occ_fixed,
 
 def pack_part(part, w, ladder=TILE_LADDER):
     """The build's host step (span `part.pack`): the part's tiles
-    (multi-read, then jumbo). Numpy only, so it may run on a thread
-    beside another part's device work."""
+    (multi-read, then jumbo), their layout and bytes; no device work, so
+    it may run on a thread beside another part's."""
     with span("part.pack"):
         tiles, jumbo = pack_part_tiles(part, w, ladder=ladder)
     return tiles + jumbo
@@ -583,8 +590,9 @@ def build_device_index(part, k, w, *, device, ladder=TILE_LADDER,
     n_idx, mid_occ (0-d int32 tensor), n_tiles, n_real (real entries),
     n_ranges (the hash-range build's S; 0 when the part fit the width
     ladder) and reckoned_bytes (reckon_bytes of that build; 0 on the
-    ladder); its steps are the spans `part.pack` (host packing),
-    `index.tiles` (B1 plus chunks) and `index.merge`. Raises
+    ladder); its steps are the spans `part.pack` (the tiles' layout and
+    bytes), `index.tiles` (the tiles' words, B1, chunks) and
+    `index.merge`. Raises
     IndexOverflowError for an empty part, past
     max_entries real entries, or when a part past the ladder would need
     more device bytes (reckon_bytes) than mem_free (default: what

@@ -13,14 +13,15 @@ import torch
 from torch_util import (ONT_ADP5, QC_JSON, SAMPLEQC_TABLES, adapter_codes,
                         adapter_windows, compare_qc_json,
                         ext_edge_pairs, ext_strip_pairs,
-                        ont_sampleqc_reads, pb_sampleqc_reads,
-                        segment_rows)
+                        odd_bases, ont_sampleqc_reads, pack_tile,
+                        pb_sampleqc_reads, segment_rows)
 
 from longqc_tpu_torch import tracing
 from longqc_tpu_torch.engine import device_index as di
 from longqc_tpu_torch.ops import _ext
 from longqc_tpu_torch.ops import adapter as adp_ops
 from longqc_tpu_torch.ops import extend as ext
+from longqc_tpu_torch.ops import pack_cuda
 from longqc_tpu_torch.ops import ringprop as rp
 from longqc_tpu_torch.ops import sketch_cuda as skc
 from longqc_tpu_torch.ops.chain import (chain_dp_batch, gap_penalty_table,
@@ -432,6 +433,110 @@ def test_cut_adapter_card_run_equals_cpu_run(dev, monkeypatch):
     assert c1["adapter.align_kernel"] == c1["adapter.candidates"] > 0
     for key in ("adapter.candidates", "adapter.straddle_dp"):
         assert c1[key] == c0[key]
+
+
+def _pack_both(t, dev):
+    card = pack_cuda.pack_words(torch.from_numpy(t.raw).to(dev),
+                                torch.from_numpy(t.row_off).to(dev),
+                                torch.from_numpy(t.segs).to(dev),
+                                R=t.R, W=t.W)
+    return [c.cpu().numpy().view(np.uint32) for c in card], t.words
+
+
+@pytest.mark.parametrize("R,W", [(256, 8192), (32, 65536), (4, 524288),
+                                 (1, 1 << 22)])
+def test_pack_kernel_matches_plain(dev, R, W):
+    """csrc/pack.cu at the ladder's three shapes and a jumbo tile: its
+    four word arrays equal the plain twin's, one launch each."""
+    t = pack_tile(np.random.RandomState(R), R, W)
+    if R > 1:
+        assert int(np.diff(t.row_off).max()) == skc.READS_PER_ROW
+        assert int(np.diff(t.row_off)[-1]) == 0
+    _ext.reset_launches()
+    card, plain = _pack_both(t, dev)
+    assert _ext.LAUNCHES["pack_tile"] == 1
+    for name, c, p in zip(("codes2", "nmask", "startmask", "endmask"),
+                          card, plain):
+        assert np.array_equal(c, p), name
+
+
+def test_pack_kernel_reads_of_no_bases(dev):
+    """Reads of no bases first in a row (the end bit on the row before,
+    or on the tile's last column), between reads and in runs, on the
+    small ladder and a jumbo tile, against the plain twin."""
+    rng = np.random.RandomState(3)
+    lens = [0, 500, 0, 0, 1200, 2048, 0, 30, 1000, 0, 40000] + \
+        list(rng.randint(0, 3, size=40)) + [0]
+    part = [["r%d" % i, odd_bases(rng, n, odd=.05), ""]
+            for i, n in enumerate(lens)]
+    tiles, jumbo = di.pack_part_tiles(part, 5, ladder=di.TILE_LADDER_SMALL)
+    firsts = 0
+    for t in tiles + jumbo:
+        firsts += sum(1 for r in range(t.R)
+                      if t.row_off[r + 1] > t.row_off[r]
+                      and t.segs[t.row_off[r], 2] == 0)
+        card, plain = _pack_both(t, dev)
+        for c, p in zip(card, plain):
+            assert np.array_equal(c, p)
+    assert firsts >= 2 and len(jumbo) == 1
+
+
+def _index_part():
+    from util_synth import make_genome, sample_reads
+    rng = np.random.RandomState(23)
+    genome = make_genome(rng, 60000)
+    part = sample_reads(rng, genome, 120, min_len=50, max_len=6000,
+                        err=0.12, junk_frac=0.1)
+    part.append(["long", odd_bases(rng, 40000, odd=.01), ""])
+    return part
+
+
+@pytest.mark.parametrize("n_idx_sizes", [di.N_IDX_SIZES_SMALL, (1 << 10,)],
+                         ids=["ladder", "hash_range"])
+def test_build_device_index_card_equals_cpu(dev, n_idx_sizes):
+    """build_device_index on the card (the tiles' words made there)
+    against the CPU build: ih, irid, ips (entry multisets within each
+    hash) and mid_occ equal; index.pack_tiles counts every tile."""
+    part = _index_part()
+    kw = dict(ladder=di.TILE_LADDER_SMALL, n_idx_sizes=n_idx_sizes,
+              range_max=1 << 12)
+    want = di.build_device_index(part, 12, 5, device="cpu", **kw)
+    stats = {}
+    with tracing.run(stats):
+        got = di.build_device_index(part, 12, 5, device=dev, **kw)
+    assert stats["spans"]["counters"]["index.pack_tiles"] \
+        == got["n_tiles"] == want["n_tiles"] > 1
+    for key in ("n_idx", "n_real", "n_ranges"):
+        assert got[key] == want[key], key
+    assert (got["n_ranges"] > 1) == (n_idx_sizes == (1 << 10,))
+    assert int(got["mid_occ"]) == int(want["mid_occ"])
+    assert torch.equal(got["ih"].cpu(), want["ih"])
+
+    def triples(idx):
+        a = torch.stack([idx["ih"].cpu().long(), idx["irid"].cpu().long(),
+                         idx["ips"].cpu().long()], 1).numpy()
+        return a[np.lexsort(a.T[::-1])]
+    assert np.array_equal(triples(got), triples(want))
+
+
+def test_device_engine_packs_every_tile_on_the_card(dev):
+    """A device engine run over several parts: index.pack_tiles equals
+    the parts' tiles, its rows equal the CPU run's."""
+    from longqc_tpu_torch.engine import overlap_host as oh
+    from longqc_tpu_torch.engine.device_overlap import DeviceOverlapEngine
+
+    reads, cfg = _mesh_inputs()
+    want = DeviceOverlapEngine(cfg, reads[:24], device="cpu").run(
+        list(reads))
+    eng = DeviceOverlapEngine(cfg, reads[:24])
+    _ext.reset_launches()
+    assert eng.run(list(reads)) == want
+    n_tiles = sum(len(di.pack_part(p, 5, ladder=eng.tile_ladder))
+                  for p in oh.iter_index_parts(iter(reads),
+                                               cfg.index.batch_size))
+    assert n_tiles >= 3
+    assert eng.spans["counters"]["index.pack_tiles"] == n_tiles \
+        == _ext.LAUNCHES["pack_tile"]
 
 
 @pytest.mark.parametrize("preset", ["ont-ligation", "pb-sequel"])

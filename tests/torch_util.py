@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from longqc_tpu_torch.config import MapOpt
+from longqc_tpu_torch.engine import device_index as di
 from longqc_tpu_torch.engine import overlap_host as oh
 from longqc_tpu_torch.engine.pipeline import _control_ref_path
 from longqc_tpu_torch.io.fastx import iter_fastx
@@ -346,3 +347,38 @@ def adapter_windows(rng, adp, C, Lw):
     lens[:3] = np.minimum((0, 1, 2), Lw)
     return wins, lens.astype(np.int32)
 
+
+# bytes the tables tell apart besides ACGT: N, lower case, U / u, IUPAC
+# codes, gap and stop symbols
+ODD_BASES = list("NnacgtUuRYKMSWBDHVryk-.*")
+
+
+def odd_bases(rng, n, odd=.03):
+    s = rng.choice(list("ACGT"), size=n)
+    hit = rng.random_sample(n) < odd
+    s[hit] = rng.choice(ODD_BASES, size=int(hit.sum()))
+    return "".join(s)
+
+
+def pack_tile(rng, R, W, sep=4):
+    """One R x W tile as the part build makes it: a read of no bases
+    first (its end bit is the tile's last column), a read of every ASCII
+    byte, ragged reads with N, lower case, U and IUPAC bases, and runs of
+    reads of 0-19 bases that READS_PER_ROW cuts; its last row empty
+    (R > 2). R = 1: a jumbo tile of one read."""
+    b = di._TileBuilder(R, W, sep)
+    every = "".join(map(chr, range(128)))
+    if R == 1:
+        b.add(0, every + odd_bases(rng, W - 5000))
+        return b.tiles()[0]
+    b.add(0, "")
+    b.add(1, every)
+    gid = 2
+    while len(b.rows) < R - 2:
+        # runs of 70 reads of 0-19 bases, then 10 longer ones
+        n = rng.randint(0, 20) if gid % 80 < 70 else \
+            rng.randint(1, min(W, 30000) // 2)
+        b.add(gid, odd_bases(rng, n))
+        gid += 1
+    b.flush()
+    return b.tiles()[0]
